@@ -5,17 +5,23 @@
 
 Phases, each printing its own line; any failure raises (non-zero exit):
 1. device: the card's name and power limit (nvidia-smi);
-2. build: every CUDA kernel of the main path from csrc/, one nvcc each,
-   all at once;
-3. reference: a small frame rendered on the card against the port's CPU
+2. build: every CUDA kernel of the main paths from csrc/ (five), one nvcc
+   each, all at once;
+3. reference: small frames rendered on the card against the port's CPU
    path (the plain PyTorch versions the CPU tests hold against the JAX
-   package), within the JAX parity budget;
+   package), within the JAX parity budget: gs-only, and with skybox + proxy;
 4. kernels: on the first 1080p frame of the bench scene, each kernel against
-   its plain version on the same inputs (block gather bit-exact, compositor
-   <= 1e-4 per channel, with and without a random depth test), timed with
-   CUDA events beside its bound and, where one exists, a library call;
-5. main path: >= 20 gs-only 1080p frames along the bench fly path through
-   Engine, with the launch counters zeroed just before and read just after.
+   its plain version on the same inputs (block gather bit-exact; compositor
+   <= 1e-4 per channel, with and without a random depth test; triangle
+   raster z bit-equal where both hit and attributes <= 1e-5 relative; both
+   samplers <= 1e-6), timed with CUDA events beside its bound and, where
+   one exists, a library call;
+5. main paths, each with the launch counters zeroed just before and read
+   just after: 8 gs-only 1080p frames along the bench fly path through
+   Engine, then 24 full-config frames (equirect skybox + proxy ground +
+   splats, the frame bench.py times) followed by the proxy pass with the
+   mip pyramid sampler, which the Renderer wires in with the fast profile;
+6. profile: where the full-config frame's time goes, per stage and kernel.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Needs a CUDA device and the repository's
@@ -42,14 +48,28 @@ SFU_OPS_PER_S = 132 * 16 * 1.98e9
 # operations and one exp
 RASTER_FP32_OPS = 22
 
+# per pair-pixel work of the triangle raster loop (csrc/trirast.cu): three
+# plane evaluations (b0, b1, z) of two multiplies and two adds, and two
+# subtractions for b2; the attribute planes are evaluated only for a pair
+# that is its pixel's nearest so far and are not counted
+TRIRAST_FP32_OPS = 14
+
 RASTER_TOL = 1e-4  # per channel: FP32 summation order and expf vs torch.exp
+# same operations in the same order as the plain versions; the mip level's
+# log2f against torch.log2
+SAMPLER_TOL = 1e-6
+# the triangle raster's attributes, relative: a tie's sum may be taken in
+# another order
+TRIRAST_ATTR_RTOL = 1e-5
 BENCH_KEYFRAMES = [  # bench.py fly path
     (0.0, (0.0, 0.0, 5.0), (0.0, 30.0, 2.0)),
     (5.0, (6.0, 18.0, 5.0), (10.0, 48.0, 2.0)),
     (10.0, (2.0, 40.0, 6.0), (-20.0, 60.0, 1.0)),
     (15.0, (-10.0, 55.0, 5.0), (-30.0, 80.0, 2.0)),
 ]
-N_FRAMES = 24
+N_FRAMES = 24      # full-config main path
+N_FRAMES_GS = 8    # gs-only main path (the earlier slice's, at a cut depth)
+N_PYR_PASSES = 3   # proxy passes through the mip pyramid sampler
 
 
 def _time_ms(torch, fn, reps: int) -> float:
@@ -74,6 +94,18 @@ def _close(ref, img):
     return float(np.mean(diff)) < 1e-4 and float(np.mean(diff > 1e-3)) <= 5e-4
 
 
+def bench_textures(sky_hw=(64, 128), cells=64, cell=8):
+    """bench.py's skybox (a vertical HDR ramp, equirect) and proxy texture
+    (a checker of `cells` x `cells` cells of `cell` texels)."""
+    sky = np.clip(
+        np.linspace(0, 4, sky_hw[0])[:, None, None]
+        * np.ones(sky_hw + (3,), np.float32), 0, 4)
+    c = np.kron(np.indices((cells, cells)).sum(0) % 2,
+                np.ones((cell, cell))).astype(np.float32)
+    return sky, np.stack([c * 0.8 + 0.1, c * 0.5 + 0.2, c * 0.3 + 0.1],
+                         axis=-1)
+
+
 def phase_reference(torch):
     """A small frame on the card against the port's CPU path."""
     from gswt_renderer_tpu_torch.core import Camera, UserData
@@ -86,6 +118,7 @@ def phase_reference(torch):
 
     w = h = 128
     wang = WangTileEngine(synthetic_scene_vec(n_lod=2, splats_per_tile=96))
+    sky, checker = bench_textures(sky_hw=(16, 32), cells=8, cell=4)
     cases = [
         dict(surface_type=SurfaceType.NONE, cam=(2.0, 2.0, 6.0),
              target=(2.0, 2.0, 0.0)),
@@ -108,21 +141,27 @@ def phase_reference(torch):
         dt = wang.sort_tiles(cam_pos, camera.view_proj())
         rc = RenderConfig.new(wang.n_tiles[0])
         sp = SceneParams.from_data(ud, wang.center_coord, rc)
-        imgs = []
+        rs = {}
         for device in ("cuda", "cpu"):
             r = Renderer(wang, RendererConfig(width=w, height=h, max_draws=128,
                                               max_stream=1 << 15, chunk=128),
                          device=device)
             r.configure(ud)
-            imgs.append(r.render(dt, camera, sp, rc))
-        gpu, cpu = imgs
-        diff = np.abs(gpu - cpu).max(axis=-1)
-        print(f"[reference] {int(kw['surface_type'])} 128x128: mean diff "
-              f"{diff.mean():.3e} max {diff.max():.3e} alpha "
-              f"{gpu[..., 3].mean():.3f}")
-        if not (np.isfinite(gpu).all() and gpu[..., 3].mean() > 0.1
-                and _close(cpu, gpu)):
-            raise RuntimeError("card frame disagrees with the CPU reference")
+            r.set_skybox(sky)
+            r.set_proxy(checker)
+            rs[device] = r
+        for full in (False, True):
+            gpu, cpu = (rs[d].render(dt, camera, sp, rc, use_skybox=full,
+                                     use_proxy=full) for d in ("cuda", "cpu"))
+            diff = np.abs(gpu - cpu).max(axis=-1)
+            print(f"[reference] surface {int(kw['surface_type'])} "
+                  f"{'skybox+proxy' if full else 'gs-only'} 128x128: mean "
+                  f"diff {diff.mean():.3e} max {diff.max():.3e} alpha "
+                  f"{gpu[..., 3].mean():.3f}")
+            if not (np.isfinite(gpu).all() and gpu[..., 3].mean() > 0.1
+                    and _close(cpu, gpu)):
+                raise RuntimeError(
+                    "card frame disagrees with the CPU reference")
 
 
 def phase_profile(torch, eng, fp, n: int = 6):
@@ -160,7 +199,8 @@ def phase_profile(torch, eng, fp, n: int = 6):
     # from its range on the device timeline; the device busy time linked
     # to its host range misses kernels launched outside PyTorch's
     # dispatcher (the ctypes-launched CUDA kernels)
-    for stage in ("gswt.project", "gswt.bin", "gswt.raster"):
+    for stage in ("gswt.skybox", "gswt.proxy", "gswt.project", "gswt.bin",
+                  "gswt.raster"):
         span = sum(per_frame(e, "cuda_time_total") for e in on_device
                    if e.key == stage)
         host = [e for e in events if e.key == stage
@@ -190,7 +230,8 @@ def main():
     from gswt_renderer_tpu_torch.core.config import SurfaceType
     from gswt_renderer_tpu_torch.engine import Engine, FlyPathControl, FlyPathFrame
     from gswt_renderer_tpu_torch.io.synth import synthetic_scene_vec
-    from gswt_renderer_tpu_torch.ops import kernels, project, raster
+    from gswt_renderer_tpu_torch.ops import (
+        kernels, project, proxy, raster, skybox, texsample, trirast)
     from gswt_renderer_tpu_torch.ops.blockgather import (
         block_gather, block_gather_plain)
     from gswt_renderer_tpu_torch.render.pipeline import RendererConfig
@@ -250,7 +291,7 @@ def main():
     # 4. kernels against their plain versions on the first frame's inputs
     r = eng.renderer
     plan = r.upload_plan(eng._staged)
-    binned = r.front(plan, eng.camera, eng.scene_params, eng.render_config)
+    binned = r.front(plan, eng.camera, eng.scene_params, eng.render_config)[0]
     scratch = project.merged_scratch(plan["merged"], r.store_packed,
                                      r.panels.shape[0])
     src = plan["blocks"][0].contiguous()
@@ -324,40 +365,262 @@ def main():
     print(f"[kernel] raster {pairs} pairs x {p_n} px: {rs['ms']:.3f} ms "
           f"(plain {rs['plain_ms']:.3f}, bound {rs['bound_ms']:.3f})")
 
-    # 5. the main path: gs-only 1080p frames along the bench fly path
+    def drive(n_frames, label):
+        """n_frames 1080p frames through Engine along the bench fly path;
+        per-frame wall times and bbox pair counts."""
+        fp.reset_path()
+        fp.start_path()
+        frame_ms, pairs_per_frame = [], []
+        for i in range(n_frames):
+            fp.handle_events(eng.camera, now_ms=15000.0 * i / n_frames)
+            t0 = time.perf_counter()
+            img = eng.frame(readback=False)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            if img is None or tuple(img.shape) != (height, width, 4):
+                raise RuntimeError(f"{label} frame {i} missing or misshapen")
+            if not bool(torch.isfinite(img).all()):
+                raise RuntimeError(f"{label} frame {i} has non-finite pixels")
+            if float(img[..., 3].mean()) <= 0.0:
+                raise RuntimeError(f"{label} frame {i} has no coverage")
+            if eng.use_skybox and float(
+                    (img[..., 3] - 1.0).abs().amax()) > 1e-5:
+                raise RuntimeError(
+                    f"{label} frame {i}: alpha is not 1 over an opaque sky")
+            pairs_per_frame.append(eng.renderer.last_aux["n_pairs"])
+        return frame_ms, pairs_per_frame
+
+    def report(label, n_frames, frame_ms, pairs_per_frame, launches):
+        q1, q2, q3 = np.percentile(frame_ms, [25, 50, 75])
+        print(f"[main] {n_frames} {label} 1080p frames: median {q2:.2f} ms "
+              f"(quartiles {q1:.2f}, {q3:.2f}; first {frame_ms[0]:.2f}), "
+              f"pairs/frame median {int(np.median(pairs_per_frame))}, "
+              f"launches {launches}")
+
+    # 5a. the earlier slice's main path: gs-only frames, at a cut depth
     kernels.LAUNCHES.clear()
-    frame_ms, pairs_per_frame = [], []
-    for i in range(N_FRAMES):
-        fp.handle_events(eng.camera, now_ms=15000.0 * i / N_FRAMES)
+    gs_ms, gs_pairs = drive(N_FRAMES_GS, "gs-only")
+    launches_gs = dict(kernels.LAUNCHES)
+    for name in ("block_gather", "raster"):
+        if launches_gs.get(name, 0) < N_FRAMES_GS:
+            raise RuntimeError(f"{name} launched {launches_gs.get(name, 0)} "
+                               f"times in {N_FRAMES_GS} gs-only frames")
+    report("gs-only", N_FRAMES_GS, gs_ms, gs_pairs, launches_gs)
+
+    # the full config of bench.py: equirect skybox + checker proxy ground
+    t0 = time.time()
+    sky, checker = bench_textures()
+    eng.set_skybox(sky, equirect=True)
+    eng.set_proxy(checker)
+    torch.cuda.synchronize()
+    print(f"[setup] skybox {sky.shape} + proxy {checker.shape} (mip chain, "
+          f"atlas, pyramid {tuple(r.proxy_pyr.shape)}) in "
+          f"{time.time() - t0:.1f} s; proxy grid "
+          f"{r.proxy_tris.shape[1]} triangles")
+
+    # 4b. the three kernels of the skybox and proxy passes, on the first
+    # full-config frame's own inputs (the first fly-path camera)
+    fp.reset_path()
+    fp.start_path()
+    fp.handle_events(eng.camera, now_ms=0.0)
+    scene_d, cam_d = r.frame_uniforms(eng.camera, eng.scene_params,
+                                      eng.render_config)[:2]
+    rcfg = eng.render_config
+    surface = int(eng.scene_params.surface_type)
+    ptile = (r.cfg.proxy_tile_w, r.cfg.proxy_tile_h)
+    p_n_proxy = ptile[0] * ptile[1]
+    n_px = width * height
+
+    # triangle raster: the bench proxy grid, projected by the frame's camera
+    planes, ok, bbox = proxy.map_grid_planes(
+        cam_d, scene_d, image_wh, r.hm4, r.height_map_wh, r.proxy_verts,
+        r.proxy_tris, surface_type=surface,
+        height_offset=float(rcfg.proxy_height))
+    rows, t_rs, t_re, n_tri_pairs = trirast.bin_triangles(
+        planes, bbox, ok, image_wh=image_wh, tile_wh=ptile)
+    tri_kw = dict(image_wh=image_wh, tile_wh=ptile, chunk=128)
+    k_out = trirast.rasterize_pair_rows(rows, t_rs, t_re, **tri_kw)
+    p_out = trirast.rasterize_triangles_plain(rows, t_rs, t_re, **tri_kw)
+    torch.cuda.synchronize()
+    both = (k_out[:, 0] < 1.0) & (p_out[:, 0] < 1.0)
+    hit_differs = int(((k_out[:, 0] < 1.0) != (p_out[:, 0] < 1.0)).sum())
+    z_equal = bool(torch.equal(k_out[:, 0][both], p_out[:, 0][both]))
+    a_err = (k_out[:, 1:] - p_out[:, 1:]).abs()
+    a_ok = bool((a_err <= TRIRAST_ATTR_RTOL * p_out[:, 1:].abs() + 1e-7).all())
+    tri_err = float((k_out - p_out).abs().amax())
+    print(f"[kernel] trirast {int(ok.sum())} triangles, {n_tri_pairs} pairs on "
+          f"{k_out.shape[0]} tiles: hit differs on {hit_differs} px, z "
+          f"bit-equal {z_equal}, max abs diff {tri_err:.3e}, coverage "
+          f"{float((k_out[:, 0] < 1.0).float().mean()):.3f}")
+    if not (hit_differs == 0 and z_equal and a_ok
+            and torch.isfinite(k_out).all()):
+        raise RuntimeError("trirast kernel disagrees with its plain version")
+    pair_px = n_tri_pairs * p_n_proxy
+    tri_bytes = 4 * (rows.numel() + t_rs.numel() + t_re.numel()
+                     + k_out.numel())
+    tri_bounds = (tri_bytes / HBM_BYTES_PER_S,
+                  pair_px * TRIRAST_FP32_OPS / FP32_OPS_PER_S)
+    tr = dict(
+        name="trirast", route="cuda",
+        source="gswt_renderer_tpu_torch/csrc/trirast.cu",
+        replaces="gswt_renderer_tpu/ops/trirast.py:221",
+        max_abs_err=tri_err,
+        ms=_time_ms(torch, lambda: trirast.rasterize_pair_rows(
+            rows, t_rs, t_re, **tri_kw), 20),
+        plain_ms=_time_ms(torch, lambda: trirast.rasterize_triangles_plain(
+            rows, t_rs, t_re, **tri_kw), 2),
+        library_ms=None,  # no single PyTorch call rasterizes triangles
+        bound_ms=max(tri_bounds) * 1e3,
+        bound_by="bytes" if tri_bounds[0] >= tri_bounds[1] else "operations",
+    )
+    print(f"[kernel] trirast: {tr['ms']:.4f} ms (plain {tr['plain_ms']:.3f}, "
+          f"bound {tr['bound_ms']:.4f} by {tr['bound_by']}: bytes "
+          f"{tri_bounds[0] * 1e3:.4f}, operations {tri_bounds[1] * 1e3:.4f})")
+
+    # bilinear sampler: the equirect sky at every pixel's view direction
+    sky_planes = torch.movedim(r.skybox_tex, -1, 0).contiguous()
+    sx, sy = skybox.equirect_texel_coords(
+        skybox.sky_directions(cam_d, image_wh, equirect=True),
+        tuple(r.skybox_tex.shape[:2]))
+    bl_kw = dict(wrap_x=False, wrap_y=False)
+    k_out = texsample.factored_bilinear(sky_planes, sx, sy, **bl_kw)
+    p_out = texsample.factored_bilinear_plain(sky_planes, sx, sy, **bl_kw)
+    _, s_h, s_w = sky_planes.shape
+    grid = torch.stack([(sx + 0.5) / s_w * 2.0 - 1.0,
+                        (sy + 0.5) / s_h * 2.0 - 1.0], dim=-1).reshape(
+                            1, 1, n_px, 2)
+
+    def grid_sample():
+        return torch.nn.functional.grid_sample(
+            sky_planes[None], grid, mode="bilinear", padding_mode="border",
+            align_corners=False)
+
+    bl_err = float((k_out - p_out).abs().amax())
+    lib_err = float((grid_sample()[0, :, 0] - k_out.reshape(3, -1)).abs().amax())
+    print(f"[kernel] bilinear {tuple(sky_planes.shape)} at {n_px} samples: "
+          f"max abs diff {bl_err:.3e} (grid_sample differs by {lib_err:.3e})")
+    if not (bl_err <= SAMPLER_TOL and torch.isfinite(k_out).all()):
+        raise RuntimeError("bilinear kernel disagrees with its plain version")
+    bl = dict(
+        name="bilinear", route="cuda",
+        source="gswt_renderer_tpu_torch/csrc/bilinear.cu",
+        replaces="gswt_renderer_tpu/ops/texsample.py:119",
+        max_abs_err=bl_err,
+        ms=_time_ms(torch, lambda: texsample.factored_bilinear(
+            sky_planes, sx, sy, **bl_kw), 50),
+        plain_ms=_time_ms(torch, lambda: texsample.factored_bilinear_plain(
+            sky_planes, sx, sy, **bl_kw), 10),
+        library_ms=_time_ms(torch, grid_sample, 50),
+        # texture, x and y read once; [C, P] written once
+        bound_ms=4 * (sky_planes.numel() + 2 * n_px + 3 * n_px)
+        / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes",
+    )
+    print(f"[kernel] bilinear: {bl['ms']:.4f} ms (plain {bl['plain_ms']:.4f}, "
+          f"grid_sample {bl['library_ms']:.4f}, bound {bl['bound_ms']:.4f})")
+
+    # mip pyramid sampler: the frame's own u, v, rho from the proxy raster
+    z_px, u_px, v_px, _, hit_px, _ = proxy.raster_map_grid(
+        cam_d, scene_d, image_wh, r.hm4, r.height_map_wh, r.proxy_verts,
+        r.proxy_tris, surface_type=surface,
+        height_offset=float(rcfg.proxy_height), tile_wh=ptile, chunk=128)
+    rho_px = proxy._uv_footprint(u_px, v_px, float(r.proxy_wh[0]),
+                                 float(r.proxy_wh[1]))
+    pyr_meta, l_min = r.proxy_pyr_meta
+    mip_args = (r.proxy_pyr, pyr_meta, l_min, u_px, v_px, rho_px)
+    k_out = texsample.factored_mip_trilinear(*mip_args)
+    p_out = texsample.factored_mip_trilinear_plain(*mip_args)
+    mip_err = float((k_out - p_out).abs().amax())
+    print(f"[kernel] mip_trilinear planes {tuple(r.proxy_pyr.shape)} l_min "
+          f"{l_min}, {len(pyr_meta)} levels at {n_px} samples "
+          f"({float(hit_px.float().mean()):.3f} on the ground): max abs diff "
+          f"{mip_err:.3e}")
+    if not (mip_err <= SAMPLER_TOL and torch.isfinite(k_out).all()):
+        raise RuntimeError(
+            "mip_trilinear kernel disagrees with its plain version")
+    mp = dict(
+        name="mip_trilinear", route="cuda",
+        source="gswt_renderer_tpu_torch/csrc/miptrilinear.cu",
+        replaces="gswt_renderer_tpu/ops/texsample.py:322",
+        max_abs_err=mip_err,
+        ms=_time_ms(torch, lambda: texsample.factored_mip_trilinear(
+            *mip_args), 50),
+        plain_ms=_time_ms(
+            torch, lambda: texsample.factored_mip_trilinear_plain(*mip_args), 3),
+        library_ms=None,  # no single PyTorch call samples a packed mip chain
+        # planes (bf16), u, v and rho read once; [3, P] written once
+        bound_ms=(2 * r.proxy_pyr.numel() + 4 * 3 * n_px + 4 * 3 * n_px)
+        / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes",
+    )
+    print(f"[kernel] mip_trilinear: {mp['ms']:.4f} ms (plain "
+          f"{mp['plain_ms']:.3f}, bound {mp['bound_ms']:.4f})")
+
+    # what the proxy depth test costs the compositor on this frame: splats
+    # behind the ground no longer raise a pixel's opacity, so fewer tiles
+    # saturate and leave their run early
+    binned_f, _, depth_f, _ = r.front(
+        r.upload_plan(eng._staged), eng.camera, eng.scene_params, rcfg,
+        use_skybox=True, use_proxy=True)
+    depth_ms, nodepth_ms = (
+        _time_ms(torch, lambda: raster.rasterize(
+            binned_f, depth_f, **dict(main_kw, use_depth=use_depth)), 10)
+        for use_depth in (True, False))
+    print(f"[kernel] raster on the full-config frame's pairs: {depth_ms:.3f} "
+          f"ms depth-tested against the proxy, {nodepth_ms:.3f} ms untested")
+
+    # 5b. this slice's main path: full-config frames through Engine, then
+    # the proxy pass through the mip pyramid sampler (the route the
+    # Renderer takes in the fast profile), all inside the counted window
+    kernels.LAUNCHES.clear()
+    frame_ms, pairs_per_frame = drive(N_FRAMES, "full-config")
+    proxy_pairs = eng.renderer.last_aux["proxy_pairs"]
+    pyr_ms = []
+    for _ in range(N_PYR_PASSES):
         t0 = time.perf_counter()
-        img = eng.frame(readback=False)
+        pyr_col, pyr_depth, pyr_hit, _ = r.proxy_pass(
+            cam_d, scene_d, eng.scene_params, rcfg, mip_pyr=r.proxy_pyr_meta)
         torch.cuda.synchronize()
-        frame_ms.append((time.perf_counter() - t0) * 1e3)
-        if img is None or tuple(img.shape) != (height, width, 4):
-            raise RuntimeError(f"frame {i} missing or misshapen")
-        if not bool(torch.isfinite(img).all()):
-            raise RuntimeError(f"frame {i} has non-finite pixels")
-        if float(img[..., 3].mean()) <= 0.0:
-            raise RuntimeError(f"frame {i} has no coverage")
-        pairs_per_frame.append(eng.renderer.last_aux["n_pairs"])
+        pyr_ms.append((time.perf_counter() - t0) * 1e3)
     launches = dict(kernels.LAUNCHES)
-    phase_profile(torch, eng, fp)
-    eng.shutdown()
-    for k in (bg, rs):
+    atlas_col = r.proxy_pass(cam_d, scene_d, eng.scene_params, rcfg)[0]
+    pyr_diff = (pyr_col - atlas_col).abs()
+    # where the footprint reaches the finest level the pyramid keeps, only
+    # the bf16 rounding of the weights separates the two samplers
+    kept_px = pyr_diff[pyr_hit & (rho_px >= 2.0 ** l_min)]
+    if kept_px.numel() == 0:
+        raise RuntimeError("no ground pixel of the bench frame samples a "
+                           "level the pyramid keeps")
+    print(f"[proxy] pass with the mip pyramid sampler at 1080p: "
+          f"{np.median(pyr_ms):.2f} ms (host clock, median of "
+          f"{N_PYR_PASSES}); colour differs from the atlas sampler's by max "
+          f"{float(pyr_diff.amax()):.4f} mean {float(pyr_diff.mean()):.5f} "
+          f"(the pyramid clamps below level {l_min} and rounds weights to "
+          f"bf16); on the {kept_px.shape[0]} ground pixels at level {l_min} "
+          f"or coarser: max {float(kept_px.amax()):.4f} mean "
+          f"{float(kept_px.mean()):.5f}")
+    if not (torch.isfinite(pyr_col).all()
+            and bool(((pyr_depth < 1.0) == pyr_hit).all())):
+        raise RuntimeError("proxy pass with the mip pyramid is malformed")
+    for k in (bg, rs, tr, bl):
         k["launches"] = launches.get(k["name"], 0)
         if k["launches"] < N_FRAMES:
             raise RuntimeError(f"{k['name']} launched {k['launches']} times "
-                               f"in {N_FRAMES} frames")
-    q1, q2, q3 = np.percentile(frame_ms, [25, 50, 75])
-    print(f"[main] {N_FRAMES} gs-only 1080p frames: median {q2:.2f} ms "
-          f"(quartiles {q1:.2f}, {q3:.2f}; first {frame_ms[0]:.2f}), "
-          f"pairs/frame median "
-          f"{int(np.median(pairs_per_frame))}, setup {setup_s:.1f} s, "
-          f"launches {launches}")
+                               f"in {N_FRAMES} full-config frames")
+    mp["launches"] = launches.get("mip_trilinear", 0)
+    if mp["launches"] < 1:
+        raise RuntimeError("mip_trilinear was not launched by the proxy pass")
+    report("full-config", N_FRAMES, frame_ms, pairs_per_frame, launches)
+    print(f"[main] proxy pairs last frame {proxy_pairs}, setup {setup_s:.1f} s")
+
+    # 6. where the full-config frame's time goes
+    phase_profile(torch, eng, fp)
+    eng.shutdown()
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: d[k] for k in keys} for d in (bg, rs)]}))
+    print(json.dumps({"kernels": [{k: d[k] for k in keys}
+                                  for d in (bg, rs, tr, bl, mp)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

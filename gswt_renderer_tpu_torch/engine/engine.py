@@ -36,8 +36,6 @@ from ..render.uniforms import SceneParams
 from ..tiles.wangtile import WangTileEngine
 from .control import FlyPathControl, KeyboardFlyControl
 
-_NEXT_SLICE = "the skybox/proxy slice of the port"
-
 
 class EngineStatus(enum.Enum):
     CONFIG = "config"          # structure.rs:429-433
@@ -218,10 +216,16 @@ class Engine:
 
     # ------------------------------------------------------------------ #
     def set_skybox(self, tex, equirect=True, bake=False):
-        raise NotImplementedError(f"the skybox comes with {_NEXT_SLICE}")
+        """Upload a skybox (equirect HDRI [H,W,3] or faces [6,R,R,3]);
+        mirrors the GUI skybox upload (skybox.rs:703-805). bake=True runs
+        the reference's HDRI->cubemap bake."""
+        self.renderer.set_skybox(tex, equirect=equirect, bake=bake)
+        self.use_skybox = tex is not None
 
     def set_proxy(self, tex):
-        raise NotImplementedError(f"the proxy comes with {_NEXT_SLICE}")
+        """Upload the proxy ground texture (proxy.rs:447-554)."""
+        self.renderer.set_proxy(tex)
+        self.use_proxy = tex is not None
 
     # ------------------------------------------------------------------ #
     def handle_key(self, key: str, pressed: bool):
@@ -343,7 +347,8 @@ class Engine:
         )
         img = self.renderer.render(
             self.cur_sort, self.camera, self.scene_params, self.render_config,
-            render_gs=self.render_gs, staged=self._staged, as_numpy=readback,
+            render_gs=self.render_gs, use_skybox=self.use_skybox,
+            use_proxy=self.use_proxy, staged=self._staged, as_numpy=readback,
         )
         self.last_image = img
         return img

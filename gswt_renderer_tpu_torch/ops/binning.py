@@ -170,9 +170,38 @@ def _cull_pair_tiles(tiles, cx, cy, qa, qb, qc, *, ntx, n_tiles, tile_wh):
     return torch.where(minq > 4.0 + _CULL_MARGIN, n_tiles, tiles)
 
 
-def bin_pairs(p, *, image_wh, tile_wh, chunk: int, cull_exact: bool = True):
+def _dilate_max2(zimg):
+    """2x2 max-window image: out[y, x] = max of zimg over
+    {y, y+1} x {x, x+1} (clipped at the grid edge). A splat whose CLIPPED
+    tile bbox is <= 2x2 starting at (x0, y0) has its whole bbox inside
+    that window, so one lookup conservatively bounds the bbox max."""
+    zx = torch.cat([torch.maximum(zimg[:, :-1], zimg[:, 1:]), zimg[:, -1:]], 1)
+    return torch.cat([torch.maximum(zx[:-1, :], zx[1:, :]), zx[-1:, :]], 0)
+
+
+def _zmax_lookup(tx, ty, zimg):
+    """Per-lane zimg[ty, tx] ([nty, ntx] f32); 0.0 for lanes off the grid."""
+    nty, ntx = zimg.shape
+    inb = (ty >= 0) & (ty < nty) & (tx >= 0) & (tx < ntx)
+    t = torch.clamp(ty, 0, nty - 1) * ntx + torch.clamp(tx, 0, ntx - 1)
+    return torch.where(inb, zimg.reshape(-1)[t], 0.0)
+
+
+def bin_pairs(p, *, image_wh, tile_wh, chunk: int, cull_exact: bool = True,
+              occ_zimg=None):
     """p: projection outputs (front-to-back order, S lanes; the lane index
     is the stream slot). Exact profile.
+
+    occ_zimg (optional [nty, ntx] f32): per-raster-tile MAX of the proxy
+    depth the compositor tests against. When given, enables the proxy-depth
+    occlusion cull -- the equivalent of the early-z the reference gets from
+    its depth pre-pass (renderer.rs:179-185, proxy.rs:119-125): a pair whose
+    z is >= the max proxy depth anywhere in its tile fails `z < depth` at
+    EVERY pixel (ops/raster.py), so dropping it changes no pixel. Two
+    levels, on the same z the compositor tests: splats whose clipped bbox
+    is <= 2x2 tiles test against the 2x2-dilated max image and leave the
+    stream before the pair expansion; every enumerated pair of the rest
+    tests its own tile.
 
     Returns dict:
       table — [16, dom] f32 rows k0..k5 (recentered to each pair's tile
@@ -181,7 +210,7 @@ def bin_pairs(p, *, image_wh, tile_wh, chunk: int, cull_exact: bool = True):
         chunk), the tail and the culled pairs dead (k5 = -1e30, ln a = -inf)
       range_start/range_end [n_tiles] i32 — each tile's run of the table
       n_pairs — bbox pair demand (int), n_pairs_kept — pairs in tile runs
-        after the cull (0-d tensor), n_live — visible splats (0-d tensor)
+        after the culls (0-d tensor), n_live — visible splats (0-d tensor)
     """
     w_img, h_img = image_wh
     tw, th = tile_wh
@@ -198,6 +227,10 @@ def bin_pairs(p, *, image_wh, tile_wh, chunk: int, cull_exact: bool = True):
     onscreen = ((cx + ex >= 0) & (cx - ex < w_img)
                 & (cy + ey >= 0) & (cy - ey < h_img))
     ok = p["valid"] & onscreen
+    if occ_zimg is not None:
+        small = (x1 - x0 <= 1) & (y1 - y0 <= 1)
+        ok = ok & ~(small & (p["z"] >= _zmax_lookup(
+            x0, y0, _dilate_max2(occ_zimg))))
     nx = torch.where(ok, x1 - x0 + 1, 0)
     ny = torch.where(ok, y1 - y0 + 1, 0)
     prim, tiles = _expand(x0, y0, nx, nx * ny, ntx=ntx)
@@ -205,6 +238,9 @@ def bin_pairs(p, *, image_wh, tile_wh, chunk: int, cull_exact: bool = True):
 
     qa, qb, qc = p["q"]
     cr, cg, cb, ca = p["color"]
+    if occ_zimg is not None:
+        occluded = p["z"][prim] >= occ_zimg.reshape(-1)[tiles]
+        tiles = torch.where(occluded, n_tiles, tiles)
     if cull_exact:
         tiles = _cull_pair_tiles(
             tiles, cx[prim], cy[prim], qa[prim], qb[prim], qc[prim],

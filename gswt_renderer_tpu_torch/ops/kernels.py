@@ -26,7 +26,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-KERNELS = ("blockgather", "raster")
+KERNELS = ("blockgather", "raster", "trirast", "bilinear", "miptrilinear")
 
 LAUNCHES: collections.Counter = collections.Counter()
 

@@ -3,9 +3,11 @@
 One frame:
 
   cull draws -> assemble + project the splat stream (panel block-gather
-  kernel + vs_main math, vectorized) -> tile binning (exact pair expansion
-  + one stable sort by image tile) -> compositor kernel -> premultiplied
-  over-composite onto the background.
+  kernel + vs_main math, vectorized) -> skybox background (bilinear sampler
+  kernel) and proxy ground colour + depth (triangle raster kernel) -> tile
+  binning (exact pair expansion + one stable sort by image tile, with the
+  optional proxy-depth occlusion cull) -> compositor kernel, depth-tested
+  against the proxy -> premultiplied over-composite onto the background.
 
 Host/device split (mirrors the reference's preloaded vs streaming buffers,
 renderer.rs:270-327): the splat store, the materialized presort panels and
@@ -17,8 +19,8 @@ touches a CUDA stream.
 
 Every domain is sized exactly from the frame's own counts; the image equals
 what the JAX package renders once its buckets have converged. The stages
-run under profiler ranges gswt.project, gswt.bin and gswt.raster, which
-chip_smoke.py's profile phase reads.
+run under profiler ranges gswt.project, gswt.skybox, gswt.proxy, gswt.bin
+and gswt.raster, which chip_smoke.py's profile phase reads.
 """
 
 from __future__ import annotations
@@ -33,16 +35,20 @@ from torch.profiler import record_function
 from ..core.camera import Camera, CameraUniforms
 from ..core.config import RenderConfig
 from ..core.mathutil import OPENGL_TO_WGPU
+from ..io.textures import build_mip_chain
 from ..ops import binning, project, raster
 from ..ops.kernels import resolve_device
 from ..ops.project import GS_BITS, pack_tex4
+from ..ops.proxy import atlas_words, make_map_grid, pack_mip_atlas, render_proxy
+from ..ops.skybox import bake_hdri_to_cubemap, render_skybox
+from ..ops.texsample import pack_pyramid
 from ..tiles.structures import DrawTable
 from .uniforms import SceneParams
 
 STREAM_BLOCK = 256  # stream panel width (ops/blockgather.py BLOCK)
 PANEL_ROWS = 16     # pos xyz, cov 6, rgba u32, packed gs|lod, map id, 4 pad
 
-_NEXT_SLICE = "the skybox/proxy slice of the port"
+_FAST_SLICE = "the fast-profile slice of the port"
 
 
 @dataclass
@@ -58,16 +64,29 @@ class RendererConfig:
     max_stream: int = 1 << 22
     # exact ellipse-tile pair cull (ops/binning.py _cull_pair_tiles)
     cull_exact: bool = True
-    # the proxy-depth and saturation culls of the JAX package; both off
-    # there by default and not ported yet
+    # proxy-depth occlusion cull (ops/binning.py occ_zimg): drops pairs
+    # that fail the compositor's depth test at every pixel of their tile.
+    # Off by default, as in the JAX package.
     depth_cull: bool = False
+    # the saturation cull belongs to the fast profile (not ported yet)
     sat_cull: bool = False
     # the exact profile; the fast profile (PARITY.md #8) is not ported yet
     exact: bool = True
+    # the proxy raster bins triangles on its OWN tile grid (it returns a
+    # full-image depth buffer, re-tiled to the splat grid)
+    proxy_tile_w: int = 64
+    proxy_tile_h: int = 32
+    # proxy pass resolution divisor: 0 = auto (1, the reference's
+    # resolution, in the exact profile); div > 1 renders the proxy at
+    # 1/div resolution and upsamples (depth/hit nearest, colour bilinear)
+    proxy_res_div: int = 0
 
 
 _STATE_KEYS = ("store_packed", "panels", "seg_block", "seg_count",
-               "np_panel_blocks", "hm4", "height_map_wh")
+               "np_panel_blocks", "hm4", "height_map_wh",
+               "skybox_tex", "skybox_equirect", "proxy_tex", "proxy_mip_meta",
+               "proxy_wh", "proxy_pyr", "proxy_pyr_meta", "proxy_verts",
+               "proxy_tris")
 
 
 def build_resident_state(engine) -> dict:
@@ -142,8 +161,11 @@ def build_resident_state(engine) -> dict:
 def state_from_numpy(arrays: dict, device) -> dict:
     """The torch Renderer's resident state from numpy arrays (for example
     the JAX Renderer's store_packed, panels, seg_block, seg_count,
-    np_panel_blocks, hm4 and height_map_wh): device arrays become float32
-    tensors on `device`, host bookkeeping stays numpy. Apply it with
+    np_panel_blocks, hm4, height_map_wh, and its skybox and proxy state):
+    device arrays become tensors on `device`, host bookkeeping stays numpy
+    or plain Python. The mip atlas (float32 holding bit-cast u32) is moved
+    as raw int32 words; the pyramid planes (integers 0..255 in any float
+    type) go through float32 to bfloat16, which is exact. Apply it with
     Renderer.set_state."""
     dev = resolve_device(device)
     unknown = set(arrays) - set(_STATE_KEYS)
@@ -151,13 +173,30 @@ def state_from_numpy(arrays: dict, device) -> dict:
         raise KeyError(f"unknown renderer state {sorted(unknown)}")
     out = {}
     for k, a in arrays.items():
-        if k in ("store_packed", "panels", "hm4"):
+        if k in ("store_packed", "panels", "hm4", "skybox_tex",
+                 "proxy_verts"):
             out[k] = torch.tensor(np.asarray(a, np.float32), device=dev)
         elif k in ("seg_block", "seg_count"):
             out[k] = np.asarray(a, np.int64)
         elif k == "np_panel_blocks":
             out[k] = int(a)
-        else:
+        elif k == "skybox_equirect":
+            out[k] = bool(a)
+        elif k == "proxy_tex":
+            out[k] = atlas_words(np.asarray(a)).to(dev)
+        elif k == "proxy_pyr":
+            out[k] = torch.tensor(
+                np.asarray(a).astype(np.float32), device=dev
+            ).to(torch.bfloat16)
+        elif k == "proxy_tris":
+            out[k] = torch.tensor(np.asarray(a, np.int32), device=dev)
+        elif k == "proxy_mip_meta":
+            out[k] = tuple(tuple(int(x) for x in lv) for lv in a)
+        elif k == "proxy_pyr_meta":
+            meta, l_min = a
+            out[k] = (tuple(tuple(int(x) for x in lv) for lv in meta),
+                      int(l_min))
+        else:  # height_map_wh, proxy_wh
             out[k] = (int(a[0]), int(a[1]))
     return out
 
@@ -173,12 +212,10 @@ class Renderer:
         self.engine = engine
         self.cfg = config or RendererConfig()
         if not self.cfg.exact:
-            raise NotImplementedError("the fast profile is not ported yet")
-        if self.cfg.depth_cull:
-            raise NotImplementedError(f"depth_cull comes with {_NEXT_SLICE}")
-        if self.cfg.sat_cull:
             raise NotImplementedError(
-                "sat_cull belongs to the fast profile, not ported yet")
+                f"the fast profile (exact=False) comes with {_FAST_SLICE}")
+        if self.cfg.sat_cull:
+            raise NotImplementedError(f"sat_cull comes with {_FAST_SLICE}")
         # full-f32 products: the projection math breaks the 1e-3 parity
         # budget under TF32 (the JAX package pins precision "highest")
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -187,6 +224,17 @@ class Renderer:
                                         self.device))
         self.height_map_wh = (1, 1)
         self.hm4 = torch.zeros((4, 1), dtype=torch.float32, device=self.device)
+        self.skybox_tex = None
+        self.skybox_equirect = True
+        self.proxy_tex = None
+        self.proxy_mip_meta = ((1, 1, 0),)
+        self.proxy_wh = (1, 1)
+        self.proxy_pyr = None
+        self.proxy_pyr_meta = None
+        self.proxy_verts = torch.zeros((2, 4), dtype=torch.float32,
+                                       device=self.device)
+        self.proxy_tris = torch.zeros((3, 2), dtype=torch.int32,
+                                      device=self.device)
         self.last_aux = None
         self._plan_host = None
         self._plan_dev = None
@@ -200,8 +248,8 @@ class Renderer:
 
     # ------------------------------------------------------------------ #
     def configure(self, user_data):
-        """Bind the height map after engine.configure (renderer.rs:351-405).
-        The proxy grid comes with the proxy slice."""
+        """Bind the height map after engine.configure (renderer.rs:351-405)
+        and build the proxy tile-map grid mesh (proxy.rs:215-258)."""
         if user_data.height_map is not None and len(user_data.height_map):
             w, h = user_data.height_map_wh
             self.height_map_wh = (int(w), int(h))
@@ -212,6 +260,48 @@ class Renderer:
             self.height_map_wh = (1, 1)
             self.hm4 = torch.zeros((4, 1), dtype=torch.float32,
                                    device=self.device)
+        gv, gt = make_map_grid(
+            user_data.tile_map_wh, user_data.tile_map_half_wh,
+            user_data.tile_width,
+        )
+        self.proxy_verts = torch.as_tensor(gv).to(self.device)
+        self.proxy_tris = torch.as_tensor(gt).to(self.device)
+
+    def set_skybox(self, tex, equirect=True, bake=False, bake_resolution=2048):
+        """Upload a skybox: equirect HDRI [H,W,3] or cube faces [6,R,R,3].
+        bake=True runs the reference's 6-pass HDRI->cubemap bake
+        (skybox.rs:341-455) so runtime sampling goes through the cubemap
+        path; the default samples the equirect directly (identical output
+        up to the cubemap's own resample, PARITY.md #5)."""
+        if tex is None:
+            self.skybox_tex = None
+            return
+        tex = torch.as_tensor(np.asarray(tex, np.float32)).to(self.device)
+        if equirect and bake:
+            self.skybox_tex = bake_hdri_to_cubemap(tex, bake_resolution)
+            self.skybox_equirect = False
+            return
+        self.skybox_tex = tex
+        self.skybox_equirect = equirect
+
+    def set_proxy(self, tex):
+        """Upload the proxy ground texture. tex: [H,W,3] (the Lanczos mip
+        chain is built here, proxy.rs:513-554) or a prebuilt list of mip
+        levels. Keeps both the mip atlas (the exact profile's sampler) and
+        the packed pyramid (ops/texsample.py factored_mip_trilinear)."""
+        if tex is None:
+            self.proxy_tex = None
+            return
+        mips = tex if isinstance(tex, (list, tuple)) else build_mip_chain(
+            np.asarray(tex, np.float32)
+        )
+        atlas, meta = pack_mip_atlas(mips)
+        self.proxy_tex = atlas_words(atlas).to(self.device)
+        self.proxy_mip_meta = meta
+        self.proxy_wh = (meta[0][0], meta[0][1])
+        pyr, pyr_meta, l_min = pack_pyramid(mips)
+        self.proxy_pyr = torch.as_tensor(pyr).to(self.device).to(torch.bfloat16)
+        self.proxy_pyr_meta = (pyr_meta, l_min)
 
     # ------------------------------------------------------------------ #
     @staticmethod
@@ -486,11 +576,10 @@ class Renderer:
         return self._plan_dev
 
     # ------------------------------------------------------------------ #
-    def project(self, plan, camera: Camera, scene: SceneParams,
-                rc: RenderConfig, render_gs: bool = True):
-        """Draw cull + stream assembly + projection of one frame from an
-        uploaded plan (ops/project.py assemble_and_project outputs)."""
-        c = self.cfg
+    def frame_uniforms(self, camera: Camera, scene: SceneParams,
+                       rc: RenderConfig, render_gs: bool = True):
+        """One frame's uniforms on the device, unpacked (see
+        unpack_frame_uniforms): one small upload per frame."""
         lod_enable = list(rc.lod_enable or [True] * 16)
         uniforms = torch.as_tensor(
             self.pack_frame_uniforms(
@@ -498,9 +587,16 @@ class Renderer:
                 render_gs=render_gs,
             )
         ).to(self.device)
-        scene_d, cam_d, lod_en, culling_dist, gs_enable = (
-            self.unpack_frame_uniforms(uniforms)
-        )
+        return self.unpack_frame_uniforms(uniforms)
+
+    def project(self, plan, camera: Camera, scene: SceneParams,
+                rc: RenderConfig, render_gs: bool = True, unpacked=None):
+        """Draw cull + stream assembly + projection of one frame from an
+        uploaded plan (ops/project.py assemble_and_project outputs)."""
+        c = self.cfg
+        if unpacked is None:
+            unpacked = self.frame_uniforms(camera, scene, rc, render_gs)
+        scene_d, cam_d, lod_en, culling_dist, gs_enable = unpacked
         keep = project.cull_draws(plan["draw"], cam_d, culling_dist, lod_en)
         return project.assemble_and_project(
             plan["blocks"], plan["merged"], self.panels, keep,
@@ -510,35 +606,106 @@ class Renderer:
             point_cloud=bool(rc.draw_point_cloud), gs_enable=gs_enable,
         )
 
-    def front(self, plan, camera: Camera, scene: SceneParams,
-              rc: RenderConfig, render_gs: bool = True):
-        """Projection + binning of one frame from an uploaded plan.
-        Returns the binned pair table (ops/binning.py bin_pairs)."""
+    def proxy_pass(self, cam_d, scene_d, scene: SceneParams, rc: RenderConfig,
+                   mip_pyr=None):
+        """The proxy ground pass at the configured resolution divisor.
+        Returns (color [H,W,4], depth [H,W], hit [H,W], aux). mip_pyr as in
+        ops/proxy.py render_proxy; the exact profile passes None (the atlas
+        sampler)."""
         c = self.cfg
-        with record_function("gswt.project"):
-            p = self.project(plan, camera, scene, rc, render_gs=render_gs)
-        with record_function("gswt.bin"):
-            return binning.bin_pairs(
-                p, image_wh=(c.width, c.height), tile_wh=(c.tile_w, c.tile_h),
-                chunk=c.chunk, cull_exact=c.cull_exact,
-            )
+        div = int(c.proxy_res_div)
+        if div <= 0:  # auto: the reference's resolution in the exact profile
+            div = 1
+        p_wh = (-(-c.width // div), -(-c.height // div))
+        prox = dict(atlas=self.proxy_tex, verts=self.proxy_verts,
+                    tris=self.proxy_tris)
+        if mip_pyr is not None:
+            prox["pyr"] = self.proxy_pyr
+        pcol, depth, hit, paux = render_proxy(
+            cam_d, scene_d, p_wh, self.hm4, self.height_map_wh, prox,
+            self.proxy_wh, surface_type=int(scene.surface_type),
+            height_offset=float(rc.proxy_height),
+            brightness=float(rc.proxy_brightness),
+            black_background=bool(rc.proxy_black_background),
+            use_clip=bool(rc.use_clip), clip_height=float(rc.clip_height),
+            mip_meta=self.proxy_mip_meta, mip_pyr=mip_pyr,
+            tile_wh=(c.proxy_tile_w, c.proxy_tile_h), chunk=128,
+        )
+        if div > 1:
+            # depth/hit upsample NEAREST (bilinear would blend across
+            # silhouettes and fabricate halo depths); colour bilinear for
+            # smooth shading
+            def up_near(x):
+                x = x.repeat_interleave(div, 0).repeat_interleave(div, 1)
+                return x[: c.height, : c.width]
 
-    def back(self, binned):
-        """Compositor + premultiplied over-composite onto the gs-only
-        background (zeros; depth ones, so no depth test). [H, W, 4]."""
+            depth = up_near(depth)
+            hit = up_near(hit)
+            pcol = torch.nn.functional.interpolate(
+                pcol.permute(2, 0, 1)[None], scale_factor=div,
+                mode="bilinear", align_corners=False,
+            )[0].permute(1, 2, 0)[: c.height, : c.width]
+        return pcol, depth, hit, paux
+
+    def front(self, plan, camera: Camera, scene: SceneParams,
+              rc: RenderConfig, render_gs: bool = True,
+              use_skybox: bool = False, use_proxy: bool = False):
+        """Projection, background + proxy depth, binning of one frame from
+        an uploaded plan. Returns (binned, bg [H,W,4], depth_tiles [T,P],
+        aux): the binned pair table (ops/binning.py bin_pairs), what the
+        compositor's output lies over and is depth-tested against. The
+        background and depth come BEFORE binning: the proxy depth feeds the
+        occlusion cull."""
         c = self.cfg
         image_wh = (c.width, c.height)
         tile_wh = (c.tile_w, c.tile_h)
-        bg = torch.zeros((c.height, c.width, 4), dtype=torch.float32,
-                         device=self.device)
-        depth = torch.ones((c.height, c.width), dtype=torch.float32,
-                           device=self.device)
+        unpacked = self.frame_uniforms(camera, scene, rc, render_gs)
+        scene_d, cam_d = unpacked[0], unpacked[1]
+        with record_function("gswt.project"):
+            p = self.project(plan, camera, scene, rc, unpacked=unpacked)
+        aux = {}
+        if use_skybox:
+            with record_function("gswt.skybox"):
+                bg = render_skybox(cam_d, image_wh, self.skybox_tex,
+                                   equirect=self.skybox_equirect)
+        else:
+            bg = torch.zeros((c.height, c.width, 4), dtype=torch.float32,
+                             device=self.device)
+        if use_proxy:
+            with record_function("gswt.proxy"):
+                pcol, depth, hit, paux = self.proxy_pass(
+                    cam_d, scene_d, scene, rc)
+                bg = torch.where(hit[..., None], pcol, bg)
+            aux["proxy_pairs"] = paux["proxy_pairs"]
+        else:
+            depth = torch.ones((c.height, c.width), dtype=torch.float32,
+                               device=self.device)
         depth_tiles = raster.image_to_depth_tiles(
             depth, image_wh=image_wh, tile_wh=tile_wh)
+        occ_zimg = None
+        if use_proxy and c.depth_cull:
+            ntx, nty, _ = binning.grid_dims(image_wh, tile_wh)
+            occ_zimg = depth_tiles.amax(dim=1).reshape(nty, ntx)
+        with record_function("gswt.bin"):
+            binned = binning.bin_pairs(
+                p, image_wh=image_wh, tile_wh=tile_wh, chunk=c.chunk,
+                cull_exact=c.cull_exact, occ_zimg=occ_zimg,
+            )
+        aux.update(n_pairs=binned["n_pairs"],
+                   n_pairs_kept=binned["n_pairs_kept"],
+                   n_live=binned["n_live"])
+        return binned, bg, depth_tiles, aux
+
+    def back(self, binned, bg, depth_tiles, *, use_proxy: bool):
+        """Compositor (depth-tested against the proxy when there is one) +
+        premultiplied over-composite onto the background. [H, W, 4]."""
+        c = self.cfg
+        image_wh = (c.width, c.height)
+        tile_wh = (c.tile_w, c.tile_h)
         with record_function("gswt.raster"):
             tiles = raster.rasterize(
                 binned, depth_tiles, image_wh=image_wh, tile_wh=tile_wh,
-                chunk=c.chunk, use_depth=False,
+                chunk=c.chunk, use_depth=bool(use_proxy),
             )
         img = raster.tiles_to_image(tiles, image_wh=image_wh, tile_wh=tile_wh)
         # premultiplied-over: final = gs + T * background
@@ -549,19 +716,19 @@ class Renderer:
                render_gs: bool = True, use_skybox: bool = False,
                use_proxy: bool = False, as_numpy: bool = True,
                staged=None):
-        """Render one gs-only frame; returns [H, W, 4] float32 (numpy, or
-        a device tensor with as_numpy=False). last_aux holds the frame's
-        counts: n_pairs (int) and n_pairs_kept, n_live (0-d tensors)."""
-        if use_skybox or use_proxy:
-            raise NotImplementedError(
-                f"skybox and proxy passes come with {_NEXT_SLICE}")
+        """Render one frame; returns [H, W, 4] float32 (numpy, or a device
+        tensor with as_numpy=False). The skybox and the proxy are drawn only
+        when asked for AND their texture is set. last_aux holds the frame's
+        counts: n_pairs (int), n_pairs_kept and n_live (0-d tensors), and
+        proxy_pairs (int) when the proxy was drawn."""
+        use_skybox = bool(use_skybox and self.skybox_tex is not None)
+        use_proxy = bool(use_proxy and self.proxy_tex is not None)
         rc = render_config or RenderConfig.new(self.engine.n_tiles[0])
         if staged is None:
             staged = self.stage(dt, camera, rc.culling_dist)
-        binned = self.front(self.upload_plan(staged), camera, scene, rc,
-                            render_gs=render_gs)
-        img = self.back(binned)
-        self.last_aux = dict(n_pairs=binned["n_pairs"],
-                             n_pairs_kept=binned["n_pairs_kept"],
-                             n_live=binned["n_live"])
+        binned, bg, depth_tiles, aux = self.front(
+            self.upload_plan(staged), camera, scene, rc, render_gs=render_gs,
+            use_skybox=use_skybox, use_proxy=use_proxy)
+        img = self.back(binned, bg, depth_tiles, use_proxy=use_proxy)
+        self.last_aux = aux
         return img.cpu().numpy() if as_numpy else img

@@ -8,13 +8,17 @@ GPU host without JAX:
 
 (GSWT_TEST_TPU=1 keeps tests/conftest.py from importing jax.)
 Tolerances: the block gather is bit-exact; the compositor within 1e-4 per
-channel (FP32 summation order, expf vs torch.exp)."""
+channel (FP32 summation order, expf vs torch.exp); the triangle raster's z
+bit-equal and its attributes within 1e-5 relative (the kernel rounds every
+multiply and add as the plain version does; only the order of a tie's sum
+can differ); both samplers within 1e-6 (same operations in the same order;
+log2f against torch.log2 in the mip level)."""
 
 import numpy as np
 import pytest
 import torch
 
-from gswt_renderer_tpu_torch.ops import binning, kernels, raster
+from gswt_renderer_tpu_torch.ops import binning, kernels, raster, texsample, trirast
 from gswt_renderer_tpu_torch.ops.blockgather import block_gather, block_gather_plain
 
 TOL = 1e-4
@@ -164,3 +168,179 @@ def test_renderer_frame_matches_cpu_path(cuda):
         imgs.append(r.render(dt, camera, sp, rc))
     diff = np.abs(imgs[0] - imgs[1]).max(axis=-1)
     assert diff.mean() < 1e-4 and np.mean(diff > 1e-3) <= 5e-4
+
+
+# ---------------------------------------------------------------------- #
+# the samplers and the triangle raster
+# ---------------------------------------------------------------------- #
+SAMPLER_TOL = 1e-6
+
+
+@pytest.mark.parametrize("wrap_x", [False, True])
+@pytest.mark.parametrize("wrap_y", [False, True])
+@pytest.mark.parametrize("shape,p", [((3, 12, 20), 5000),
+                                     ((3, 64, 128), 1920 * 1080)])
+def test_bilinear_kernel_matches_plain(cuda, wrap_x, wrap_y, shape, p):
+    rng = np.random.default_rng(0)
+    tex = torch.from_numpy(rng.uniform(0, 4, shape).astype(np.float32)).to(cuda)
+    _, ht, wt = shape
+    x = rng.uniform(-2.0 * wt, 3.0 * wt, p).astype(np.float32)
+    y = rng.uniform(-2.0 * ht, 3.0 * ht, p).astype(np.float32)
+    x[:6] = [0.0, -0.5, wt - 1.0, wt - 0.5, wt, -wt]
+    y[:6] = [0.0, -0.5, ht - 1.0, ht - 0.5, ht, -ht]
+    x, y = torch.from_numpy(x).to(cuda), torch.from_numpy(y).to(cuda)
+    before = kernels.LAUNCHES["bilinear"]
+    got = texsample.factored_bilinear(tex, x, y, wrap_x=wrap_x, wrap_y=wrap_y)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bilinear"] == before + 1
+    want = texsample.factored_bilinear_plain(tex, x, y, wrap_x=wrap_x,
+                                             wrap_y=wrap_y)
+    assert got.shape == want.shape == (3, p)
+    assert float((got - want).abs().max()) <= SAMPLER_TOL
+
+
+def test_bilinear_kernel_rejects_bad_inputs(cuda):
+    tex = torch.zeros((3, 4, 4), device=cuda)
+    x = torch.zeros(8, device=cuda)
+    with pytest.raises(ValueError):
+        texsample.factored_bilinear(tex.double(), x, x, wrap_x=True, wrap_y=True)
+    with pytest.raises(ValueError):
+        texsample.factored_bilinear(tex, x, x[:4], wrap_x=True, wrap_y=True)
+    with pytest.raises(ValueError):
+        texsample.factored_bilinear(tex, x.cpu(), x, wrap_x=True, wrap_y=True)
+
+
+def _pyramid(size, seed, device):
+    from gswt_renderer_tpu_torch.io.textures import build_mip_chain
+
+    rng = np.random.default_rng(seed)
+    mips = build_mip_chain(rng.uniform(size=(size, size, 3)).astype(np.float32))
+    planes, meta, l_min = texsample.pack_pyramid(mips)
+    return (torch.from_numpy(planes).to(device).to(torch.bfloat16), meta,
+            l_min, len(mips))
+
+
+@pytest.mark.parametrize("size,p", [(64, 20000), (512, 1920 * 1080)])
+def test_mip_trilinear_kernel_matches_plain(cuda, size, p):
+    """Every level band, the l_min clamp (512 -> level 2), and the
+    coinciding-tap cases: rho far past the coarsest level (l0 == l1, whose
+    1x1 level has x0 == x1 and y0 == y1) in the first samples."""
+    planes, meta, l_min, n_lv = _pyramid(size, 1, cuda)
+    rng = np.random.default_rng(2)
+    u = torch.from_numpy(rng.uniform(-3, 4, p).astype(np.float32)).to(cuda)
+    v = torch.from_numpy(rng.uniform(-3, 4, p).astype(np.float32)).to(cuda)
+    rho = (2.0 ** rng.uniform(-2.0, n_lv + 2.0, p)).astype(np.float32)
+    rho[:64] = 1e7
+    rho[64:128] = float(2 ** (n_lv - 2))  # exactly the 2x2 level: frac = 0
+    rho = torch.from_numpy(rho).to(cuda)
+    before = kernels.LAUNCHES["mip_trilinear"]
+    got = texsample.factored_mip_trilinear(planes, meta, l_min, u, v, rho)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["mip_trilinear"] == before + 1
+    want = texsample.factored_mip_trilinear_plain(planes, meta, l_min, u, v,
+                                                  rho)
+    assert float((got - want).abs().max()) <= SAMPLER_TOL
+    texel = planes[:, meta[-1][2], meta[-1][3]].to(torch.float32) / 255.0
+    assert float((got[:, :64] - texel[:, None]).abs().max()) <= 1e-6
+
+
+def _tri_rows(xs, ys, zs, attrs, device, image_wh, tile_wh):
+    n = xs.shape[1]
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)
+    planes, ok, bbox = trirast.triangle_planes(
+        t(xs), t(ys), t(zs), torch.ones((3, n), device=device), t(attrs),
+        torch.ones(n, dtype=torch.bool, device=device))
+    return trirast.bin_triangles(planes, bbox, ok, image_wh=image_wh,
+                                 tile_wh=tile_wh)
+
+
+def _assert_trirast_equal(rows, rs, re_, image_wh, tile_wh, chunk=128):
+    kw = dict(image_wh=image_wh, tile_wh=tile_wh, chunk=chunk)
+    before = kernels.LAUNCHES["trirast"]
+    got = trirast.rasterize_pair_rows(rows, rs, re_, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["trirast"] == before + 1
+    want = trirast.rasterize_triangles_plain(rows, rs, re_, **kw)
+    assert torch.equal(got[:, 0], want[:, 0]), "z must be bit-equal"
+    err = (got[:, 1:] - want[:, 1:]).abs()
+    assert bool((err <= 1e-5 * want[:, 1:].abs() + 1e-7).all())
+    return got
+
+
+@pytest.mark.parametrize("n,image_wh", [(300, (128, 96)), (3000, (1920, 1080))])
+def test_trirast_kernel_matches_plain(cuda, n, image_wh):
+    rng = np.random.default_rng(3)
+    w, h = image_wh
+    cx = rng.uniform(0, w, n)
+    cy = rng.uniform(0, h, n)
+    xs = (cx + rng.uniform(-60, 60, (3, n))).astype(np.float32)
+    ys = (cy + rng.uniform(-40, 40, (3, n))).astype(np.float32)
+    zs = rng.uniform(-0.1, 1.1, (3, n)).astype(np.float32)
+    attrs = rng.uniform(-1, 1, (3, 3, n)).astype(np.float32)
+    rows, rs, re_, total = _tri_rows(xs, ys, zs, attrs, cuda, image_wh, (64, 32))
+    assert total > n
+    got = _assert_trirast_equal(rows, rs, re_, image_wh, (64, 32))
+    assert float((got[:, 0] < 1.0).float().mean()) > 0.2
+
+
+def test_trirast_kernel_on_pixel_centre_edges_and_ties(cuda):
+    """The FMA-sensitive case: a fan of triangles whose shared edges pass
+    exactly through pixel centres (vertices at half-integer coordinates), so
+    barycentrics are exactly 0 along them and a contracted a*px + b*py + c
+    would move those pixels between triangles or into a hole; and coincident
+    triangles across a chunk boundary (the tie rule)."""
+    image_wh, tile_wh = (128, 64), (64, 32)
+    hub = (40.5, 20.5)
+    rim = [(8.5, 4.5), (72.5, 4.5), (100.5, 20.5), (72.5, 52.5), (8.5, 52.5),
+           (0.5, 20.5)]
+    tris = [(hub, rim[i], rim[(i + 1) % 6]) for i in range(6)]
+    tris = tris * 30  # 180 coincident copies: runs cross the 128-pair chunk
+    xs = np.array([[t[k][0] for t in tris] for k in range(3)], np.float32)
+    ys = np.array([[t[k][1] for t in tris] for k in range(3)], np.float32)
+    zs = np.full((3, len(tris)), 0.5, np.float32)
+    attrs = np.zeros((3, 3, len(tris)), np.float32)
+    attrs[0] = np.arange(len(tris), dtype=np.float32)[None, :]
+    rows, rs, re_, _ = _tri_rows(xs, ys, zs, attrs, cuda, image_wh, tile_wh)
+    assert int((re_ - rs).max()) > 128
+    got = _assert_trirast_equal(rows, rs, re_, image_wh, tile_wh)
+    z, _ = trirast.tiles_to_maps(got, image_wh=image_wh, tile_wh=tile_wh)
+    # no hole inside the fan: the hexagon's interior rows are fully covered
+    assert bool((z[21, 1:100] < 1.0).all())
+
+
+def test_full_config_frame_matches_cpu_path(cuda):
+    from gswt_renderer_tpu_torch.core import Camera, UserData
+    from gswt_renderer_tpu_torch.core.config import RenderConfig, SurfaceType
+    from gswt_renderer_tpu_torch.io.synth import synthetic_scene_vec
+    from gswt_renderer_tpu_torch.render.pipeline import Renderer, RendererConfig
+    from gswt_renderer_tpu_torch.render.uniforms import SceneParams
+    from gswt_renderer_tpu_torch.tiles import WangTileEngine
+
+    wang = WangTileEngine(synthetic_scene_vec(n_lod=2, splats_per_tile=96))
+    ud = UserData.from_ui(tile_map_half_wh=(2, 2), height_map_scale=(1.0, 0.3),
+                          height_map_wh=(8, 8), lod_max_dist=8.0,
+                          surface_type=SurfaceType.HEIGHT_MAP)
+    wang.configure(ud)
+    cam_pos = np.array([1.0, -5.0, 3.0], np.float32)
+    wang.build_tiles(cam_pos)
+    camera = Camera((128, 128), cam_pos, (1.0, 0.0, 0.5), (0.0, 1.0, 0.0),
+                    np.deg2rad(60.0), 0.1, 200.0)
+    dt = wang.sort_tiles(cam_pos, camera.view_proj())
+    rc = RenderConfig.new(wang.n_tiles[0])
+    sp = SceneParams.from_data(ud, wang.center_coord, rc)
+    sky = np.linspace(0, 4, 16 * 32 * 3, dtype=np.float32).reshape(16, 32, 3)
+    tex = np.random.default_rng(0).uniform(size=(32, 32, 3)).astype(np.float32)
+    imgs = []
+    for device in (cuda, "cpu"):
+        r = Renderer(wang, RendererConfig(width=128, height=128, max_draws=128,
+                                          max_stream=1 << 15, chunk=128,
+                                          depth_cull=True),
+                     device=device)
+        r.configure(ud)
+        r.set_skybox(sky)
+        r.set_proxy(tex)
+        imgs.append(r.render(dt, camera, sp, rc, use_skybox=True,
+                             use_proxy=True))
+    diff = np.abs(imgs[0] - imgs[1]).max(axis=-1)
+    assert diff.mean() < 1e-4 and np.mean(diff > 1e-3) <= 5e-4
+    assert np.abs(imgs[0][..., 3] - 1.0).max() < 1e-5

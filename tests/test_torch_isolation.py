@@ -6,6 +6,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -74,22 +75,32 @@ def test_entry_points_default_to_the_card():
 
 
 def test_unported_paths_raise():
+    """What is still to port raises and names its slice (the fast profile);
+    what this package has ported does not raise."""
     from gswt_renderer_tpu_torch.engine import Engine
     from gswt_renderer_tpu_torch.io.synth import synthetic_scene_vec
+    from gswt_renderer_tpu_torch.ops import raster
     from gswt_renderer_tpu_torch.render.pipeline import RendererConfig
 
     sv = synthetic_scene_vec(n_lod=1, splats_per_tile=16)
-    eng = Engine(sv, viewport=(64, 64),
-                 renderer_config=RendererConfig(width=64, height=64,
-                                                max_draws=16),
-                 synchronous=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.set_skybox(None)
-    with pytest.raises(NotImplementedError):
-        eng.set_proxy(None)
-    for bad in (dict(exact=False), dict(depth_cull=True), dict(sat_cull=True)):
-        with pytest.raises(NotImplementedError):
-            Engine(sv, viewport=(64, 64),
-                   renderer_config=RendererConfig(width=64, height=64, **bad),
-                   synchronous=True, device="cpu")
+
+    def engine(**cfg):
+        return Engine(sv, viewport=(64, 64),
+                      renderer_config=RendererConfig(width=64, height=64,
+                                                     max_draws=16, **cfg),
+                      synchronous=True, device="cpu")
+
+    for bad in (dict(exact=False), dict(sat_cull=True)):
+        with pytest.raises(NotImplementedError, match="fast-profile slice"):
+            engine(**bad)
+    with pytest.raises(NotImplementedError, match="fast"):
+        raster.rasterize({}, None, image_wh=(64, 64), tile_wh=(64, 32),
+                         chunk=128, emit_zcut=True)
+    eng = engine(depth_cull=True)
+    eng.set_skybox(None)
+    eng.set_proxy(None)
+    assert not eng.use_skybox and not eng.use_proxy
+    eng.set_skybox(np.ones((4, 8, 3), np.float32))
+    eng.set_proxy(np.ones((4, 4, 3), np.float32))
+    assert eng.use_skybox and eng.use_proxy
     eng.shutdown()

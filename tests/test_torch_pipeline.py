@@ -1,13 +1,15 @@
-"""The whole gs-only slice: the port's Renderer and Engine against the JAX
-package's (exact profile, Pallas kernels in interpret mode on the CPU) and
-against the per-pixel NumPy oracle, on the scene and RendererConfig of
-tests/test_pipeline.py. Budget: tests/test_pipeline.py's _assert_close,
-mean abs < 1e-4 and at most 5e-4 of the pixels over 1e-3."""
+"""The ported slices as a whole: the port's Renderer and Engine against the
+JAX package's (exact profile, Pallas kernels in interpret mode on the CPU)
+and, gs-only, against the per-pixel NumPy oracle, on the scene and
+RendererConfig of tests/test_pipeline.py; gs-only frames and full-config
+frames (skybox + proxy ground + splats). Budget: tests/test_pipeline.py's
+_assert_close, mean abs < 1e-4 and at most 5e-4 of the pixels over 1e-3."""
 
 import json
 
 import numpy as np
 import pytest
+import torch
 
 from gswt_renderer_tpu.core import Camera, UserData
 from gswt_renderer_tpu.core.config import (
@@ -185,3 +187,184 @@ def test_engine_checkpoint_roundtrip(tmp_path):
     assert np.isfinite(img).all() and img[..., 3].mean() > 0.2
     eng.shutdown()
     eng2.shutdown()
+
+
+# ---------------------------------------------------------------------- #
+# full config: skybox + proxy ground + splats
+# ---------------------------------------------------------------------- #
+def _textures():
+    sky = np.clip(np.linspace(0, 4, 16)[:, None, None]
+                  * np.ones((16, 32, 3), np.float32), 0, 4)
+    checker = np.kron(np.indices((8, 8)).sum(0) % 2,
+                      np.ones((4, 4))).astype(np.float32)
+    tex = np.stack([checker * 0.8 + 0.1, checker * 0.5 + 0.2,
+                    checker * 0.3 + 0.1], axis=-1)
+    return sky, tex
+
+
+def _jax_state(jr):
+    """The JAX Renderer's resident arrays, as numpy, under the port's state
+    names."""
+    return dict(
+        store_packed=np.asarray(jr.store_packed), panels=np.asarray(jr.panels),
+        seg_block=jr.seg_block, seg_count=jr.seg_count,
+        np_panel_blocks=jr.np_panel_blocks, hm4=np.asarray(jr.hm4),
+        height_map_wh=jr.height_map_wh,
+        skybox_tex=np.asarray(jr.skybox_tex),
+        skybox_equirect=jr.skybox_equirect,
+        proxy_tex=np.asarray(jr.proxy_tex), proxy_mip_meta=jr.proxy_mip_meta,
+        proxy_wh=jr.proxy_wh, proxy_pyr=np.asarray(jr.proxy_pyr),
+        proxy_pyr_meta=jr.proxy_pyr_meta,
+        proxy_verts=np.asarray(jr.proxy_verts),
+        proxy_tris=np.asarray(jr.proxy_tris))
+
+
+@pytest.mark.parametrize("case", ["flat", "heightmap"])
+def test_full_config_frame_matches_jax(case):
+    """Skybox + proxy + splats, the port computing from the JAX Renderer's
+    own arrays (installed through state_from_numpy), against the JAX
+    Renderer; and the port's own set_skybox / set_proxy / configure build
+    the same state."""
+    wang, ud, dt, camera, rc, sp = _frame(case)
+    sky, tex = _textures()
+    jr = JaxRenderer(wang, _jax_config())
+    jr.configure(ud)
+    jr.set_skybox(sky)
+    jr.set_proxy(tex)
+    jimg = jr.render(dt, camera, sp, rc, use_skybox=True, use_proxy=True)
+    assert int(jr.last_aux["proxy_pairs"]) > 0
+
+    fed = Renderer(wang, _config(), device="cpu")
+    fed.set_state(state_from_numpy(_jax_state(jr), "cpu"))
+    img = fed.render(dt, camera, sp, rc, use_skybox=True, use_proxy=True)
+    assert img.shape == (H, W, 4) and np.isfinite(img).all()
+    assert np.abs(img[..., 3] - 1.0).max() < 1e-5, "the sky is opaque"
+    _assert_close(jimg, img)
+    assert fed.last_aux["proxy_pairs"] == int(jr.last_aux["proxy_pairs"])
+    assert fed.last_aux["n_pairs"] == int(jr.last_aux["n_pairs"])
+    gs_only = fed.render(dt, camera, sp, rc)
+    assert np.abs(gs_only - img).max() > 0.1, "the background shows"
+
+    own = Renderer(wang, _config(), device="cpu")
+    own.configure(ud)
+    own.set_skybox(sky)
+    own.set_proxy(tex)
+    for k in ("skybox_tex", "proxy_verts", "proxy_tris"):
+        np.testing.assert_array_equal(getattr(own, k).numpy(),
+                                      getattr(fed, k).numpy(), err_msg=k)
+    np.testing.assert_array_equal(own.proxy_tex.numpy(), fed.proxy_tex.numpy())
+    assert torch.equal(own.proxy_pyr, fed.proxy_pyr)
+    assert own.proxy_pyr.dtype == torch.bfloat16
+    assert own.proxy_tex.dtype == torch.int32
+    assert own.proxy_mip_meta == fed.proxy_mip_meta
+    assert own.proxy_pyr_meta == fed.proxy_pyr_meta
+    assert own.proxy_wh == fed.proxy_wh and own.skybox_equirect is True
+    np.testing.assert_array_equal(
+        own.render(dt, camera, sp, rc, use_skybox=True, use_proxy=True), img)
+
+
+def test_skybox_and_proxy_flags_need_their_texture():
+    """use_skybox / use_proxy are honoured only when the texture is set;
+    a baked skybox goes through the cubemap path."""
+    wang, ud, dt, camera, rc, sp = _frame("flat")
+    sky, tex = _textures()
+    tr = Renderer(wang, _config(), device="cpu")
+    tr.configure(ud)
+    plain = tr.render(dt, camera, sp, rc)
+    np.testing.assert_array_equal(
+        tr.render(dt, camera, sp, rc, use_skybox=True, use_proxy=True), plain)
+    assert "proxy_pairs" not in tr.last_aux
+    tr.set_skybox(sky, bake=True, bake_resolution=32)
+    assert tuple(tr.skybox_tex.shape) == (6, 32, 32, 3)
+    assert tr.skybox_equirect is False
+    baked = tr.render(dt, camera, sp, rc, use_skybox=True)
+    jr = JaxRenderer(wang, _jax_config())
+    jr.configure(ud)
+    jr.set_skybox(sky, bake=True, bake_resolution=32)
+    _assert_close(jr.render(dt, camera, sp, rc, use_skybox=True), baked)
+    tr.set_skybox(None)
+    np.testing.assert_array_equal(
+        tr.render(dt, camera, sp, rc, use_skybox=True), plain)
+
+
+def _full_engines(div=0, **ui):
+    sky, tex = _textures()
+    kw = dict(tile_map_half_wh=(2, 2), height_map_scale=(1.0, 0.2),
+              height_map_wh=(4, 4), lod_max_dist=8.0,
+              surface_type=SurfaceType.HEIGHT_MAP)
+    kw.update(ui)
+    jeng = JaxEngine(
+        synthetic_scene_vec(n_lod=2, splats_per_tile=48), viewport=(96, 64),
+        renderer_config=JaxConfig(
+            exact=True, width=96, height=64, max_draws=64, max_stream=1 << 13,
+            min_stream=1 << 11, chunk=128, proxy_res_div=div,
+            proxy_tile_w=32, proxy_tile_h=16),
+        synchronous=True)
+    teng = Engine(
+        t_synth(n_lod=2, splats_per_tile=48), viewport=(96, 64),
+        renderer_config=RendererConfig(
+            width=96, height=64, max_draws=64, max_stream=1 << 13, chunk=128,
+            proxy_res_div=div, proxy_tile_w=32, proxy_tile_h=16),
+        synchronous=True, device="cpu")
+    for eng, mod in ((jeng, UserData), (teng, tcore.UserData)):
+        eng.set_skybox(sky, equirect=True)
+        eng.set_proxy(tex)
+        eng.configure(mod.from_ui(**kw))
+        assert eng.wait_ready(timeout_s=300)
+        eng.camera.set_view(np.array([1.0, -5.0, 3.0], np.float32),
+                            np.array([1.0, 2.0, 0.5], np.float32),
+                            np.array([0.0, 0.0, 1.0], np.float32))
+    return jeng, teng
+
+
+def test_engine_full_config_frame_matches_jax_engine():
+    jeng, teng = _full_engines()
+    assert teng.use_skybox and teng.use_proxy
+    jimg, img = np.asarray(jeng.frame()), teng.frame()
+    assert np.abs(img[..., 3] - 1.0).max() < 1e-5
+    assert teng.renderer.last_aux["n_pairs"] > 0
+    assert teng.renderer.last_aux["proxy_pairs"] > 0
+    _assert_close(jimg, img)
+    teng.set_proxy(None)
+    teng.set_skybox(None)
+    assert not teng.use_skybox and not teng.use_proxy
+    assert teng.frame()[..., 3].min() < 0.5, "gs-only again"
+    teng.shutdown()
+    jeng.shutdown()
+
+
+def test_proxy_res_div_matches_jax_and_full_res():
+    """proxy_res_div=2 renders the proxy at half resolution and upsamples
+    (depth/hit nearest, colour bilinear). The port's frame equals the JAX
+    package's at the same divisor within the parity budget, and stays close
+    to the full-resolution frame within the bounds of
+    tests/test_passes.py::test_proxy_res_div_parity."""
+    jeng, teng = _full_engines(div=2)
+    jimg, half = np.asarray(jeng.frame()), teng.frame()
+    _assert_close(jimg, half)
+    jeng.shutdown()
+    teng.shutdown()
+    jeng, teng = _full_engines(div=1)
+    full = teng.frame()
+    jeng.shutdown()
+    teng.shutdown()
+    assert np.isfinite(half).all()
+    assert np.abs(full - half).mean() < 0.02
+    assert ((full[..., 3] > 0.02) != (half[..., 3] > 0.02)).mean() < 0.05
+
+
+def test_bilinear_upsample_matches_jax_image_resize_at_the_borders():
+    """The colour upsample of proxy_res_div: F.interpolate(bilinear,
+    align_corners=False) against jax.image.resize(linear), borders
+    included (both clamp to the edge texel)."""
+    import jax.image
+
+    rng = np.random.default_rng(0)
+    src = rng.uniform(size=(7, 9, 4)).astype(np.float32)
+    for div in (2, 3):
+        ref = np.asarray(jax.image.resize(src, (7 * div, 9 * div, 4),
+                                          method="linear"))
+        got = torch.nn.functional.interpolate(
+            torch.from_numpy(src).permute(2, 0, 1)[None], scale_factor=div,
+            mode="bilinear", align_corners=False)[0].permute(1, 2, 0).numpy()
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
