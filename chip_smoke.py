@@ -12,15 +12,16 @@ Phases, each printing its own line; any failure raises (non-zero exit):
    package), within the JAX parity budget: gs-only, and with skybox + proxy;
 4. kernels: on the first 1080p frame of the bench scene, each kernel against
    its plain version on the same inputs (block gather bit-exact; compositor
-   <= 1e-4 per channel, with and without a random depth test; triangle
-   raster z bit-equal where both hit and attributes <= 1e-5 relative; both
-   samplers <= 1e-6), timed with CUDA events beside its bound and, where
-   one exists, a library call;
+   <= 1e-4 per channel, without a depth test, with a random one, and on the
+   full-config frame's pairs against the proxy's depth; triangle raster z
+   bit-equal where both hit and attributes <= 1e-5 relative; bilinear
+   sampler bit-equal, mip sampler <= 1e-6), timed with CUDA events beside
+   its bound and, where one exists, a library call;
 5. main paths, each with the launch counters zeroed just before and read
    just after: 8 gs-only 1080p frames along the bench fly path through
-   Engine, then 24 full-config frames (equirect skybox + proxy ground +
-   splats, the frame bench.py times) followed by the proxy pass with the
-   mip pyramid sampler, which the Renderer wires in with the fast profile;
+   Engine; 24 full-config frames (equirect skybox + proxy ground + splats,
+   the frame bench.py times); the proxy pass with the mip pyramid sampler,
+   which the Renderer wires in with the fast profile;
 6. profile: where the full-config frame's time goes, per stage and kernel.
 
 The line before the last is {"kernels": [...]}; the last line is
@@ -55,8 +56,9 @@ RASTER_FP32_OPS = 22
 TRIRAST_FP32_OPS = 14
 
 RASTER_TOL = 1e-4  # per channel: FP32 summation order and expf vs torch.exp
-# same operations in the same order as the plain versions; the mip level's
-# log2f against torch.log2
+# the mip sampler: same operations in the same order as the plain version,
+# but the level's log2f against torch.log2. The bilinear sampler has no such
+# call and is held bit-equal.
 SAMPLER_TOL = 1e-6
 # the triangle raster's attributes, relative: a tie's sum may be taken in
 # another order
@@ -347,23 +349,17 @@ def main():
         if not (e <= RASTER_TOL and torch.isfinite(k_out).all()):
             raise RuntimeError("raster kernel disagrees with its plain version")
         err = max(err, e)
-    pairs = stats["pairs"]
-    pp = pairs * p_n  # pair-pixels the frame composites
-    rs = dict(
-        name="raster", route="cuda",
-        source="gswt_renderer_tpu_torch/csrc/raster.cu",
-        replaces="gswt_renderer_tpu/ops/raster.py:735",
-        max_abs_err=err,
-        ms=_time_ms(torch, lambda: raster.rasterize(binned, ones, **main_kw), 10),
-        plain_ms=_time_ms(
-            torch, lambda: raster.rasterize_plain(binned, ones, **main_kw), 2),
-        library_ms=None,
-        bound_ms=max(pp * RASTER_FP32_OPS / FP32_OPS_PER_S,
-                     pp / SFU_OPS_PER_S) * 1e3,
-        bound_by="operations",
-    )
-    print(f"[kernel] raster {pairs} pairs x {p_n} px: {rs['ms']:.3f} ms "
-          f"(plain {rs['plain_ms']:.3f}, bound {rs['bound_ms']:.3f})")
+
+    def raster_bound_ms(pairs):
+        pp = pairs * p_n  # pair-pixels the frame composites
+        return max(pp * RASTER_FP32_OPS / FP32_OPS_PER_S,
+                   pp / SFU_OPS_PER_S) * 1e3
+
+    gs_raster_ms = _time_ms(
+        torch, lambda: raster.rasterize(binned, ones, **main_kw), 10)
+    print(f"[kernel] raster on the gs-only frame, {stats['pairs']} pairs x "
+          f"{p_n} px, no depth test: {gs_raster_ms:.3f} ms (bound "
+          f"{raster_bound_ms(stats['pairs']):.3f})")
 
     def drive(n_frames, label):
         """n_frames 1080p frames through Engine along the bench fly path;
@@ -499,7 +495,7 @@ def main():
     lib_err = float((grid_sample()[0, :, 0] - k_out.reshape(3, -1)).abs().amax())
     print(f"[kernel] bilinear {tuple(sky_planes.shape)} at {n_px} samples: "
           f"max abs diff {bl_err:.3e} (grid_sample differs by {lib_err:.3e})")
-    if not (bl_err <= SAMPLER_TOL and torch.isfinite(k_out).all()):
+    if not (torch.equal(k_out, p_out) and torch.isfinite(k_out).all()):
         raise RuntimeError("bilinear kernel disagrees with its plain version")
     bl = dict(
         name="bilinear", route="cuda",
@@ -556,25 +552,66 @@ def main():
     print(f"[kernel] mip_trilinear: {mp['ms']:.4f} ms (plain "
           f"{mp['plain_ms']:.3f}, bound {mp['bound_ms']:.4f})")
 
-    # what the proxy depth test costs the compositor on this frame: splats
-    # behind the ground no longer raise a pixel's opacity, so fewer tiles
-    # saturate and leave their run early
+    # the compositor and the block gather on the full-config frame's own
+    # inputs: pairs depth-tested against the proxy's depth, the path whose
+    # launches the kernels line counts. Splats behind the ground no longer
+    # raise a pixel's opacity, so fewer tiles saturate and leave their run
+    # early than in the gs-only frame.
+    plan_f = r.upload_plan(eng._staged)
+    src_f = plan_f["blocks"][0].contiguous()
+    scratch_f = project.merged_scratch(plan_f["merged"], r.store_packed,
+                                       r.panels.shape[0])
+    if not torch.equal(
+            block_gather(r.panels, src_f, scratch_f).view(torch.int32),
+            block_gather_plain(r.panels, src_f, scratch_f).view(torch.int32)):
+        raise RuntimeError("block_gather kernel disagrees with its plain "
+                           "version on the full-config plan")
     binned_f, _, depth_f, _ = r.front(
-        r.upload_plan(eng._staged), eng.camera, eng.scene_params, rcfg,
-        use_skybox=True, use_proxy=True)
-    depth_ms, nodepth_ms = (
-        _time_ms(torch, lambda: raster.rasterize(
-            binned_f, depth_f, **dict(main_kw, use_depth=use_depth)), 10)
-        for use_depth in (True, False))
-    print(f"[kernel] raster on the full-config frame's pairs: {depth_ms:.3f} "
-          f"ms depth-tested against the proxy, {nodepth_ms:.3f} ms untested")
+        plan_f, eng.camera, eng.scene_params, rcfg, use_skybox=True,
+        use_proxy=True)
+    depth_kw = dict(main_kw, use_depth=True)
+    stats_f = {}
+    k_out = raster.rasterize(binned_f, depth_f, **depth_kw)
+    p_out = raster.rasterize_plain(binned_f, depth_f, stats=stats_f,
+                                   **depth_kw)
+    e = float((k_out - p_out).abs().amax())
+    print(f"[kernel] raster on the full-config frame, depth-tested against "
+          f"the proxy: max abs diff {e:.3e} alpha "
+          f"{float(k_out[:, 3].mean()):.4f}")
+    if not (e <= RASTER_TOL and torch.isfinite(k_out).all()):
+        raise RuntimeError("raster kernel disagrees with its plain version "
+                           "under the proxy depth test")
+    rs = dict(
+        name="raster", route="cuda",
+        source="gswt_renderer_tpu_torch/csrc/raster.cu",
+        replaces="gswt_renderer_tpu/ops/raster.py:735",
+        max_abs_err=max(err, e),
+        ms=_time_ms(torch, lambda: raster.rasterize(
+            binned_f, depth_f, **depth_kw), 10),
+        plain_ms=_time_ms(torch, lambda: raster.rasterize_plain(
+            binned_f, depth_f, **depth_kw), 2),
+        library_ms=None,
+        bound_ms=raster_bound_ms(stats_f["pairs"]),
+        bound_by="operations",
+    )
+    nodepth_ms = _time_ms(torch, lambda: raster.rasterize(
+        binned_f, depth_f, **main_kw), 10)
+    stats_nd = {}
+    raster.rasterize_plain(binned_f, depth_f, stats=stats_nd, **main_kw)
+    print(f"[kernel] raster {stats_f['pairs']} pairs x {p_n} px: "
+          f"{rs['ms']:.3f} ms depth-tested (plain {rs['plain_ms']:.3f}, "
+          f"bound {rs['bound_ms']:.3f}); untested, the same table "
+          f"composites {stats_nd['pairs']} pairs in {nodepth_ms:.3f} ms")
 
-    # 5b. this slice's main path: full-config frames through Engine, then
-    # the proxy pass through the mip pyramid sampler (the route the
-    # Renderer takes in the fast profile), all inside the counted window
+    # 5b. this slice's main path: full-config frames through Engine
     kernels.LAUNCHES.clear()
     frame_ms, pairs_per_frame = drive(N_FRAMES, "full-config")
+    launches = dict(kernels.LAUNCHES)
     proxy_pairs = eng.renderer.last_aux["proxy_pairs"]
+
+    # 5c. a path of its own, counted on its own: the proxy pass through the
+    # mip pyramid sampler (the route the Renderer takes in the fast profile)
+    kernels.LAUNCHES.clear()
     pyr_ms = []
     for _ in range(N_PYR_PASSES):
         t0 = time.perf_counter()
@@ -582,7 +619,7 @@ def main():
             cam_d, scene_d, eng.scene_params, rcfg, mip_pyr=r.proxy_pyr_meta)
         torch.cuda.synchronize()
         pyr_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = dict(kernels.LAUNCHES)
+    launches_pyr = dict(kernels.LAUNCHES)
     atlas_col = r.proxy_pass(cam_d, scene_d, eng.scene_params, rcfg)[0]
     pyr_diff = (pyr_col - atlas_col).abs()
     # where the footprint reaches the finest level the pyramid keeps, only
@@ -593,7 +630,8 @@ def main():
                            "level the pyramid keeps")
     print(f"[proxy] pass with the mip pyramid sampler at 1080p: "
           f"{np.median(pyr_ms):.2f} ms (host clock, median of "
-          f"{N_PYR_PASSES}); colour differs from the atlas sampler's by max "
+          f"{N_PYR_PASSES}), launches {launches_pyr}; colour differs from "
+          f"the atlas sampler's by max "
           f"{float(pyr_diff.amax()):.4f} mean {float(pyr_diff.mean()):.5f} "
           f"(the pyramid clamps below level {l_min} and rounds weights to "
           f"bf16); on the {kept_px.shape[0]} ground pixels at level {l_min} "
@@ -602,14 +640,20 @@ def main():
     if not (torch.isfinite(pyr_col).all()
             and bool(((pyr_depth < 1.0) == pyr_hit).all())):
         raise RuntimeError("proxy pass with the mip pyramid is malformed")
+    if launches.get("mip_trilinear", 0):
+        raise RuntimeError("the exact-profile frame launched mip_trilinear: "
+                           "it samples the proxy through the atlas")
     for k in (bg, rs, tr, bl):
         k["launches"] = launches.get(k["name"], 0)
         if k["launches"] < N_FRAMES:
             raise RuntimeError(f"{k['name']} launched {k['launches']} times "
                                f"in {N_FRAMES} full-config frames")
-    mp["launches"] = launches.get("mip_trilinear", 0)
-    if mp["launches"] < 1:
-        raise RuntimeError("mip_trilinear was not launched by the proxy pass")
+    for name in ("trirast", "mip_trilinear"):
+        if launches_pyr.get(name, 0) < N_PYR_PASSES:
+            raise RuntimeError(
+                f"{name} launched {launches_pyr.get(name, 0)} times in "
+                f"{N_PYR_PASSES} proxy passes through the mip pyramid")
+    mp["launches"] = launches_pyr["mip_trilinear"]
     report("full-config", N_FRAMES, frame_ms, pairs_per_frame, launches)
     print(f"[main] proxy pairs last frame {proxy_pairs}, setup {setup_s:.1f} s")
 

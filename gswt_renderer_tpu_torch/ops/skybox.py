@@ -56,11 +56,14 @@ def sky_directions(cam, image_wh, *, equirect: bool):
 def _sample_equirect(tex, dir_xyz):
     """SampleSphericalMap + bake tonemap (skybox.wgsl:74-97). tex [H,W,3].
 
-    Small textures (factored_fits) go through the bilinear kernel
-    (ops/texsample.py); larger ones through four indexed taps."""
+    On the card every texture goes through the bilinear kernel
+    (ops/texsample.py), which has no size limit. On the CPU a texture over
+    the JAX package's limit (factored_fits) takes four indexed taps in that
+    package's association, so the CPU tests compare like with like; the two
+    associations differ in the last ulp."""
     th, tw = tex.shape[:2]
     x, y = equirect_texel_coords(dir_xyz, (th, tw))
-    if factored_fits((3, th, tw)):
+    if tex.is_cuda or factored_fits((3, th, tw)):
         c = torch.movedim(
             factored_bilinear(
                 torch.movedim(tex, -1, 0).contiguous(), x, y,

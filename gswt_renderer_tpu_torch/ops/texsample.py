@@ -104,8 +104,9 @@ def factored_bilinear(tex_planes, x, y, *, wrap_x: bool, wrap_y: bool):
 
 def factored_fits(tex_shape) -> bool:
     """True if [C, Ht, Wt] is a small texture in the JAX package's sense
-    (its resident-texture kernel's limit). The port keeps the limit so both
-    packages sample a given texture with the same association."""
+    (its resident-texture kernel's limit). The CUDA kernel has no such
+    limit; only the CPU path of the skybox pass asks, so that it samples a
+    given texture with the JAX package's association."""
     n_ch, ht, wt = tex_shape
     return n_ch * ht <= 512 and wt <= 512 and n_ch * ht * wt * 4 <= 2 << 20
 

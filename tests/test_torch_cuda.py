@@ -11,8 +11,9 @@ Tolerances: the block gather is bit-exact; the compositor within 1e-4 per
 channel (FP32 summation order, expf vs torch.exp); the triangle raster's z
 bit-equal and its attributes within 1e-5 relative (the kernel rounds every
 multiply and add as the plain version does; only the order of a tie's sum
-can differ); both samplers within 1e-6 (same operations in the same order;
-log2f against torch.log2 in the mip level)."""
+can differ); the bilinear sampler bit-equal (same operations, each rounded
+on its own, in the same order); the mip sampler within 1e-6 (log2f against
+torch.log2 in the level)."""
 
 import numpy as np
 import pytest
@@ -179,15 +180,19 @@ SAMPLER_TOL = 1e-6
 @pytest.mark.parametrize("wrap_x", [False, True])
 @pytest.mark.parametrize("wrap_y", [False, True])
 @pytest.mark.parametrize("shape,p", [((3, 12, 20), 5000),
-                                     ((3, 64, 128), 1920 * 1080)])
+                                     ((3, 64, 128), 1920 * 1080),
+                                     ((3, 700, 1400), 50000)])
 def test_bilinear_kernel_matches_plain(cuda, wrap_x, wrap_y, shape, p):
+    """Bit-equal to the plain version, so a contracted multiply-add in the
+    kernel fails. The first samples sit on texel centres, half texels, the
+    edges, and past the range of an int32."""
     rng = np.random.default_rng(0)
     tex = torch.from_numpy(rng.uniform(0, 4, shape).astype(np.float32)).to(cuda)
     _, ht, wt = shape
     x = rng.uniform(-2.0 * wt, 3.0 * wt, p).astype(np.float32)
     y = rng.uniform(-2.0 * ht, 3.0 * ht, p).astype(np.float32)
-    x[:6] = [0.0, -0.5, wt - 1.0, wt - 0.5, wt, -wt]
-    y[:6] = [0.0, -0.5, ht - 1.0, ht - 0.5, ht, -ht]
+    x[:8] = [0.0, -0.5, wt - 1.0, wt - 0.5, wt, -wt, 3e9, -3e9]
+    y[:8] = [0.0, -0.5, ht - 1.0, ht - 0.5, ht, -ht, -3e9, 3e9]
     x, y = torch.from_numpy(x).to(cuda), torch.from_numpy(y).to(cuda)
     before = kernels.LAUNCHES["bilinear"]
     got = texsample.factored_bilinear(tex, x, y, wrap_x=wrap_x, wrap_y=wrap_y)
@@ -196,7 +201,29 @@ def test_bilinear_kernel_matches_plain(cuda, wrap_x, wrap_y, shape, p):
     want = texsample.factored_bilinear_plain(tex, x, y, wrap_x=wrap_x,
                                              wrap_y=wrap_y)
     assert got.shape == want.shape == (3, p)
-    assert float((got - want).abs().max()) <= SAMPLER_TOL
+    assert torch.equal(got, want)
+
+
+def test_equirect_over_the_small_texture_limit_takes_the_kernel(cuda):
+    """The card samples an equirect of any size through the bilinear kernel;
+    the result agrees with the CPU path's four indexed taps to the last
+    ulps of a value up to 4."""
+    from gswt_renderer_tpu_torch.ops import skybox
+
+    rng = np.random.default_rng(4)
+    tex = torch.from_numpy(
+        rng.uniform(0.5, 4.0, (600, 1200, 3)).astype(np.float32))
+    assert not texsample.factored_fits((3, 600, 1200))
+    d = torch.from_numpy(rng.normal(size=(4000, 3)).astype(np.float32))
+    before = kernels.LAUNCHES["bilinear"]
+    got = skybox._sample_equirect(tex.to(cuda), d.to(cuda))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bilinear"] == before + 1
+    want = skybox._sample_equirect(tex, d)
+    # atan2/asin differ in the last ulp between the card and the CPU, times
+    # the texture width in texels, times a texel-to-texel step of up to 3.5
+    assert float((got.cpu() - want).abs().max()) <= 1e-3
+    assert float((got.cpu() - want).abs().mean()) <= 1e-5
 
 
 def test_bilinear_kernel_rejects_bad_inputs(cuda):
