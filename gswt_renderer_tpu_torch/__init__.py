@@ -6,9 +6,10 @@ its layout so each counterpart sits at the same path:
 
 - ``core``, ``io``, ``native``, ``tiles``, ``engine.control``,
   ``render.uniforms``  framework-neutral host code, kept as own copies
-- ``ops``       projection, binning and the compositor on torch tensors; the
-                Pallas kernels become CUDA kernels under ``csrc/``
-                (``ops.blockgather``, ``ops.raster``), each beside a plain
+- ``ops``       projection, skybox, proxy ground, binning and the compositor
+                on torch tensors; the Pallas kernels become CUDA kernels
+                under ``csrc/`` (``ops.blockgather``, ``ops.raster``,
+                ``ops.trirast``, ``ops.texsample``), each beside a plain
                 PyTorch version of the same function
 - ``render``    the per-frame pipeline (``Renderer``)
 - ``engine``    the session loop with its async builder thread (``Engine``)
@@ -17,7 +18,9 @@ Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; on a CPU tensor every kernel wrapper runs its plain version.
 This package imports neither ``jax`` nor ``gswt_renderer_tpu``.
 
-Ported so far: the gs-only frame (no skybox, no proxy) in the exact profile.
+Ported so far: the full-config frame (skybox + proxy ground + splats) in both
+profiles, the default fast profile (``RendererConfig.exact=False``, with the
+optional ``sat_cull`` and ``depth_cull``) and the exact one.
 """
 
 __version__ = "0.1.0"

@@ -187,10 +187,93 @@ def _zmax_lookup(tx, ty, zimg):
     return torch.where(inb, zimg.reshape(-1)[t], 0.0)
 
 
-def bin_pairs(p, *, image_wh, tile_wh, chunk: int, cull_exact: bool = True,
-              occ_zimg=None):
+# splat-level saturation cull window: a splat is lookup-cullable when its
+# bbox spans <= 2 tile columns and <= _SAT_K band rows (small splats, the
+# overwhelming majority); wider splats are not sat-culled at all
+_SAT_K = 4
+
+
+def quantize_z(z):
+    """The fast profile's depth key: NDC z as u16 fixed point over [0, 1],
+    FLOORED, back in f32. Fixed point because NDC z only spans [0, 1] and
+    the splat-vs-proxy gaps the depth test must resolve are ~1e-4..1e-5 at
+    range; floored because a tie must resolve to 'in front' (nearest
+    rounding replaces distant splats with the proxy texture). The pair
+    table's z row and both levels of the occlusion cull take their key from
+    here, so cull and compositor can never disagree."""
+    return torch.floor(torch.clamp(z, 0.0, 1.0) * 65535.0) * (1.0 / 65535.0)
+
+
+def round_bf16(x):
+    """x rounded to bfloat16 (to nearest even), back in float32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def quantize_payload(qa, qb, qc, color):
+    """The fast profile's per-splat payload values (PARITY.md #8), in f32.
+
+    The quadratic is quantized as its CHOLESKY factors (Q = L L^T), each
+    rounded to bf16, not as (qa, qb, qc): grazing-angle splats reach
+    |qb|/sqrt(qa qc) within 1e-7 of 1, and bf16's 2^-9 relative rounding of
+    the raw coefficients tips about half of them indefinite, so the exponent
+    GROWS along the bbox. L L^T is PSD at any precision of L. Colours and
+    alpha are rounded to 8 bits (NaN -> 0, +-inf clipped into [0, 1])."""
+    l11 = torch.sqrt(torch.clamp(qa, min=1e-12))
+    l21 = qb / l11
+    l22 = torch.sqrt(torch.clamp(qc - l21 * l21, min=0.0))
+    l11, l21, l22 = round_bf16(l11), round_bf16(l21), round_bf16(l22)
+    q = (l11 * l11, l11 * l21, l21 * l21 + l22 * l22)
+
+    def u8(x):
+        return torch.round(
+            torch.clamp(torch.nan_to_num(x), 0.0, 1.0) * 255.0) * (1.0 / 255.0)
+
+    return q, tuple(u8(c) for c in color)
+
+
+def _sat_cullable(sat_simg, cy, ey, x0, x1, *, nty, th):
+    """Splat-level saturation cull at BAND grain: mask [S] of the splats
+    whose stream slot (= lane index) lies at or behind the cut of every
+    band cell their bbox can reach. A splat whose bbox spans <= 2 tile
+    columns and <= _SAT_K band rows tests ONE lookup: the cut image is
+    pre-dilated at every (row-span, col-span) combination and the splat
+    indexes the variant matching ITS span (a fixed max-size window would
+    take SAT_NOCUT from rows and columns the splat never touches and barely
+    cull). sat_simg: [nty * SAT_BANDS, ntx] f32, band-row-major."""
+    n_br = sat_simg.shape[0]
+    bh_px = (nty * th) // n_br
+
+    def coldil(a):  # max over columns {x, x+1}
+        return torch.cat([torch.maximum(a[:, :-1], a[:, 1:]), a[:, -1:]], 1)
+
+    rd = sat_simg
+    variants = [rd, coldil(rd)]
+    for s in range(1, _SAT_K):
+        # max over rows {y .. y+s}; replicate-padded: off-grid rows have no
+        # pixels, so they must not poison the window
+        sh = torch.cat([sat_simg[s:], sat_simg[-1:].expand(s, -1)], 0)
+        rd = torch.maximum(rd, sh)
+        variants += [rd, coldil(rd)]
+    sdil = torch.cat(variants, 0)  # [2 * _SAT_K * n_br, ntx]
+    gb0 = torch.clamp(torch.floor((cy - ey) / bh_px), 0, n_br - 1).long()
+    gb1 = torch.clamp(torch.floor((cy + ey) / bh_px), 0, n_br - 1).long()
+    span_y = torch.clamp(gb1 - gb0, 0, _SAT_K - 1)
+    span_x = torch.clamp(x1 - x0, 0, 1)
+    row = (span_y * 2 + span_x) * n_br + gb0
+    small = (x1 - x0 <= 1) & (gb1 - gb0 <= _SAT_K - 1)
+    slot = torch.arange(cy.shape[0], device=cy.device, dtype=torch.float32)
+    return small & (slot >= _zmax_lookup(x0, row, sdil))
+
+
+def bin_pairs(p, *, image_wh, tile_wh, chunk: int, exact: bool = True,
+              cull_exact: bool = True, occ_zimg=None, sat_simg=None):
     """p: projection outputs (front-to-back order, S lanes; the lane index
-    is the stream slot). Exact profile.
+    is the stream slot).
+
+    exact=False is the fast profile (PARITY.md #8): the table carries the
+    quantized values of quantize_payload and quantize_z, and every cull
+    tests those same values (the quantized coefficients in the ellipse
+    cull, the quantized z in the occlusion cull).
 
     occ_zimg (optional [nty, ntx] f32): per-raster-tile MAX of the proxy
     depth the compositor tests against. When given, enables the proxy-depth
@@ -202,6 +285,13 @@ def bin_pairs(p, *, image_wh, tile_wh, chunk: int, cull_exact: bool = True,
     is <= 2x2 tiles test against the 2x2-dilated max image and leave the
     stream before the pair expansion; every enumerated pair of the rest
     tests its own tile.
+
+    sat_simg (optional [nty * SAT_BANDS, ntx] f32, band-row-major): the
+    per-band SATURATION SLOT cut, the stream slot beyond which the previous
+    frame's compositor proved nothing can contribute to that band (all its
+    pixels were opaque: ops/raster.py emit_zcut). A splat whose slot is >=
+    the cut of every band it reaches composites entirely behind a
+    transmittance < MIN_T. Splat level only (_sat_cullable).
 
     Returns dict:
       table — [16, dom] f32 rows k0..k5 (recentered to each pair's tile
@@ -227,19 +317,26 @@ def bin_pairs(p, *, image_wh, tile_wh, chunk: int, cull_exact: bool = True,
     onscreen = ((cx + ex >= 0) & (cx - ex < w_img)
                 & (cy + ey >= 0) & (cy - ey < h_img))
     ok = p["valid"] & onscreen
+    qa, qb, qc = p["q"]
+    cr, cg, cb, ca = p["color"]
+    z = p["z"]
+    if not exact:
+        (qa, qb, qc), (cr, cg, cb, ca) = quantize_payload(
+            qa, qb, qc, (cr, cg, cb, ca))
+        z = quantize_z(z)
     if occ_zimg is not None:
         small = (x1 - x0 <= 1) & (y1 - y0 <= 1)
-        ok = ok & ~(small & (p["z"] >= _zmax_lookup(
+        ok = ok & ~(small & (z >= _zmax_lookup(
             x0, y0, _dilate_max2(occ_zimg))))
+    if sat_simg is not None:
+        ok = ok & ~_sat_cullable(sat_simg, cy, ey, x0, x1, nty=nty, th=th)
     nx = torch.where(ok, x1 - x0 + 1, 0)
     ny = torch.where(ok, y1 - y0 + 1, 0)
     prim, tiles = _expand(x0, y0, nx, nx * ny, ntx=ntx)
     n_pairs = prim.shape[0]
 
-    qa, qb, qc = p["q"]
-    cr, cg, cb, ca = p["color"]
     if occ_zimg is not None:
-        occluded = p["z"][prim] >= occ_zimg.reshape(-1)[tiles]
+        occluded = z[prim] >= occ_zimg.reshape(-1)[tiles]
         tiles = torch.where(occluded, n_tiles, tiles)
     if cull_exact:
         tiles = _cull_pair_tiles(
@@ -254,7 +351,7 @@ def bin_pairs(p, *, image_wh, tile_wh, chunk: int, cull_exact: bool = True,
     if pad:
         tile_of = torch.cat([tile_of, tile_of.new_full((pad,), n_tiles)])
         src = torch.cat([src, src.new_zeros(pad)])
-    rows = torch.stack([cx, cy, qa, qb, qc, p["z"], cr, cg, cb, ca])
+    rows = torch.stack([cx, cy, qa, qb, qc, z, cr, cg, cb, ca])
     rows = torch.cat([rows[:, src[:n_pairs]], rows.new_zeros((10, pad))], 1)
     dead = tile_of >= n_tiles
     cxg, cyg, qag, qbg, qcg, zg, rg, gg, bg, ag = rows

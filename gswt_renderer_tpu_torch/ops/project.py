@@ -5,8 +5,9 @@ streams (renderer.rs:466-591) and does all per-splat math in vs_main
 (gswt.wgsl:27-422). Here the whole frame's draws flatten into ONE splat
 stream, assembled on the device by one panel block-gather
 (ops/blockgather.py), and the vertex math runs vectorized over the stream.
-Semantics follow the JAX package's exact profile line for line; the NumPy
-oracle (refrender/oracle.py of the JAX package) is the test reference.
+Semantics follow the JAX package's line for line, in the exact profile and
+(the height-map path of surface_mapping) the fast one; the NumPy oracle
+(refrender/oracle.py of the JAX package) is the test reference.
 
 The stream is assembled directly front-to-back (reversed draw order,
 reversed lanes within each draw) so the compositor needs no flips.
@@ -90,11 +91,71 @@ def _sphere_uv_to_pos(u, v):
             torch.sin(v))
 
 
+def _smallmap_resized_bilinear(hm_src, hu, hv, reso_w, reso_h):
+    """Bilinear sample of the bicubic-RESIZED height map, computed from the
+    small [H, W] source map instead of the resized texture.
+
+    The reference resizes the source to reso^2 by sampling its Catmull-Rom
+    surface B at the grid points k/reso (wangtile.rs:1333-1349) and then
+    fetches that texture bilinearly (gswt.wgsl:569-574). Bilinear weights
+    are separable and B is bilinear in its weight vectors, so the sample is
+    the lerp, in x then y, of B at the four surrounding resize-grid points:
+    snap to the grid, take the four wrapped cubic taps per axis of the
+    source map at each snapped coordinate, and lerp. Also returns the
+    analytic derivatives of that bilinear patch in resized-texel units (the
+    fast profile's gradient, PARITY.md #8)."""
+    h_n, w_n = hm_src.shape
+
+    def taps(u_grid, n):
+        # wrapped Catmull-Rom taps of the source surface at uv u_grid
+        x = u_grid * n - 0.5
+        x0 = torch.floor(x)
+        t = x - x0
+        w = (((-0.5 * t + 1.0) * t - 0.5) * t,
+             ((1.5 * t - 2.5) * t) * t + 1.0,
+             ((-1.5 * t + 2.0) * t + 0.5) * t,
+             ((0.5 * t - 0.5) * t) * t)
+        x0i = x0.long()
+        return [(x0i + (i - 1)) % n for i in range(4)], w
+
+    def snap(u, reso):
+        x = u * reso - 0.5
+        x0 = torch.floor(x)
+        return x0 / reso, (x0 + 1.0) / reso, x - x0
+
+    def along_x(u_grid):  # [H, S]: every source row at column coordinate u
+        pos, w = taps(u_grid, w_n)
+        return sum(hm_src[:, pos[i]] * w[i] for i in range(4))
+
+    def along_y(v_grid, cols):  # [S]: the [H, S] columns at row coordinate v
+        pos, w = taps(v_grid, h_n)
+        return sum(cols.gather(0, pos[i][None])[0] * w[i] for i in range(4))
+
+    u0, u1, tx = snap(hu, reso_w)
+    v0, v1, ty = snap(hv, reso_h)
+    t0 = along_x(u0)
+    dtx = along_x(u1) - t0
+    tmp = t0 + tx * dtx                          # lerp in x -> [H, S]
+    r0 = along_y(v0, tmp)
+    dhdy = along_y(v1, tmp) - r0                 # per resized texel
+    height = r0 + ty * dhdy
+    d0 = along_y(v0, dtx)
+    dhdx = d0 + ty * (along_y(v1, dtx) - d0)
+    return height, dhdx, dhdy
+
+
 def surface_mapping(scene, hm4, hm_wh, px, py, map_id, single,
-                    mc_x, mc_y, surface_type: int):
-    """gswt.wgsl:565-623, componentized (exact profile). Returns
-    (mx, my, mz) mapped surface point and the local frame as 9 [S] arrays
-    in order (lx_x, lx_y, lx_z, ly_x, ly_y, ly_z, lz_x, lz_y, lz_z)."""
+                    mc_x, mc_y, surface_type: int, exact: bool = True,
+                    hm_src=None):
+    """gswt.wgsl:565-623, componentized. Returns (mx, my, mz) mapped
+    surface point and the local frame as 9 [S] arrays in order
+    (lx_x, lx_y, lx_z, ly_x, ly_y, ly_z, lz_x, lz_y, lz_z).
+
+    exact=False (the fast profile, PARITY.md #8) takes the height-map
+    gradient analytically from the bilinear patch of the height tap's own
+    four texels, and, given hm_src (the small source map the height map was
+    resized from; a [1, 1] tensor means none), height and gradient from
+    _smallmap_resized_bilinear."""
     ones = torch.ones_like(px)
     zeros = torch.zeros_like(px)
     if surface_type == 0:
@@ -110,16 +171,40 @@ def surface_mapping(scene, hm4, hm_wh, px, py, map_id, single,
         hv = (py + half[1] * tw) / hy
         w, h = int(hm_wh[0]), int(hm_wh[1])
         z = hms[2]
-        # reference gradient: central differences of the bilinear
-        # interpolant at +-0.001 uv (gswt.wgsl:569-574) — 5 taps
-        dt = 0.001
-        height = _bilinear_wrap4(hm4, w, h, hu, hv) * z
-        h_r = _bilinear_wrap4(hm4, w, h, hu + dt, hv) * z
-        h_l = _bilinear_wrap4(hm4, w, h, hu - dt, hv) * z
-        h_u = _bilinear_wrap4(hm4, w, h, hu, hv + dt) * z
-        h_d = _bilinear_wrap4(hm4, w, h, hu, hv - dt) * z
-        gx = (h_r - h_l) / (2.0 * dt * hx)  # local_x = (1, 0, gx)
-        gy = (h_u - h_d) / (2.0 * dt * hy)  # local_y = (0, 1, gy)
+        if exact:
+            # reference gradient: central differences of the bilinear
+            # interpolant at +-0.001 uv (gswt.wgsl:569-574) — 5 taps
+            dt = 0.001
+            height = _bilinear_wrap4(hm4, w, h, hu, hv) * z
+            h_r = _bilinear_wrap4(hm4, w, h, hu + dt, hv) * z
+            h_l = _bilinear_wrap4(hm4, w, h, hu - dt, hv) * z
+            h_u = _bilinear_wrap4(hm4, w, h, hu, hv + dt) * z
+            h_d = _bilinear_wrap4(hm4, w, h, hu, hv - dt) * z
+            gx = (h_r - h_l) / (2.0 * dt * hx)  # local_x = (1, 0, gx)
+            gy = (h_u - h_d) / (2.0 * dt * hy)  # local_y = (0, 1, gy)
+        else:
+            if hm_src is not None and tuple(hm_src.shape) != (1, 1):
+                height, dhdx, dhdy = _smallmap_resized_bilinear(
+                    hm_src, hu, hv, w, h)
+            else:
+                # the reference's +-0.001-uv central difference spans ~1
+                # texel of the upsampled map: a smoothed version of this
+                # per-patch derivative
+                x = hu * w - 0.5
+                y = hv * h - 0.5
+                x0 = torch.floor(x)
+                y0 = torch.floor(y)
+                tx = x - x0
+                ty = y - y0
+                t4 = hm4[:, (y0.long() % h) * w + (x0.long() % w)]
+                i00, i10, i01, i11 = t4[0], t4[1], t4[2], t4[3]
+                height = ((i00 * (1 - tx) + i10 * tx) * (1 - ty)
+                          + (i01 * (1 - tx) + i11 * tx) * ty)
+                dhdx = (i10 - i00) * (1 - ty) + (i11 - i01) * ty
+                dhdy = (i01 - i00) * (1 - tx) + (i11 - i10) * tx
+            height = height * z
+            gx = dhdx * z * w / hx
+            gy = dhdy * z * h / hy
         n = torch.sqrt(gx * gx + gy * gy + 1.0)
         return (px, py, height), (
             ones, zeros, gx,
@@ -226,9 +311,11 @@ def merged_scratch(merged, store_packed, rows: int):
 def assemble_and_project(blocks, merged, panels, keep_draw, store_packed,
                          scene, cam, hm4, hm_wh, *, surface_type: int,
                          draw_mode: int, image_wh,
-                         point_cloud: bool = False, gs_enable=None):
+                         point_cloud: bool = False, gs_enable=None,
+                         exact: bool = True, hm_src=None):
     """Assemble the front-to-back splat stream from 256-wide panels and
-    project it (vs_main math, gswt.wgsl:27-422), exact profile.
+    project it (vs_main math, gswt.wgsl:27-422). exact and hm_src select
+    the height-map path of surface_mapping; nothing else depends on them.
 
     The stream is a sequence of per-draw segments; every segment is a
     256-aligned contiguous slice of either `panels` (the materialized
@@ -319,7 +406,8 @@ def assemble_and_project(blocks, merged, panels, keep_draw, store_packed,
 
     # surface mapping (gswt.wgsl:74-82)
     (mx, my, mz), fr = surface_mapping(
-        scene, hm4, hm_wh, cx_w, cy_w, mid, single, mc_x, mc_y, surface_type
+        scene, hm4, hm_wh, cx_w, cy_w, mid, single, mc_x, mc_y, surface_type,
+        exact=exact, hm_src=hm_src,
     )
     fxx, fxy, fxz, fyx, fyy, fyz, fzx, fzy, fzz = fr
     if surface_type > 0:

@@ -8,9 +8,11 @@ identical to back-to-front ONE/ONE_MINUS_SRC_ALPHA blending.
 
 On the card the compositor is the CUDA kernel ``csrc/raster.cu`` (one thread
 block per tile, T and the colour sums in registers); on the CPU it is
-``rasterize_plain``, a vectorised form of the same function over the
-(tile, chunk) worklist. Both stop compositing a tile once max T < MIN_T,
-tested where each chunk of the table begins.
+``rasterize_plain``, the same function over the (tile, chunk) worklist.
+Both stop compositing a tile once max T < MIN_T, tested where each chunk of
+the table begins. Both come in the exact and the fast profile's variant
+(bf16-rounded weights and colours), each with or without the saturation-slot
+record the temporal saturation cull feeds back into binning.
 """
 
 from __future__ import annotations
@@ -20,10 +22,16 @@ import ctypes
 import torch
 
 from . import kernels
-from .binning import build_worklist
+from .binning import build_worklist, round_bf16
 
 CUTOFF = -4.0  # fragment discard threshold (gswt.wgsl:427-430)
 MIN_T = 0.5 / 255.0  # early-exit transmittance (below ROP quantization)
+# saturation-SLOT record (emit_zcut): SAT_NOCUT (> any stream slot; slots are
+# exact in f32 to 2^24) marks "no cut"; the +0.5 makes `slot >= cut` strictly
+# `slot > last composited slot` (slots are integral)
+SAT_NOCUT = float(1 << 25)
+_SCUT_BUMP = 0.5
+SAT_BANDS = 4  # horizontal bands per tile in the saturation record
 MAX_CHUNK = 256  # the CUDA kernel stages one chunk in shared memory
 MAX_TILE_PIXELS = 2048  # 256 threads x 8 pixels
 # worklist entries per step of the plain version: bounds its [B, C, P]
@@ -49,16 +57,26 @@ def _pixel_monomials(tw, th, device):
 
 
 def rasterize_plain(binned, depth_tiles, *, image_wh, tile_wh, chunk: int,
-                    use_depth: bool = True, stats=None):
-    """Plain PyTorch compositor with the kernel's semantics.
+                    use_depth: bool = True, exact: bool = True,
+                    emit_zcut: bool = False, stats=None):
+    """Plain PyTorch compositor with the kernel's semantics and the kernel's
+    order of operations.
 
     Worklist entries (tile, chunk) (ops.binning.build_worklist) are
     processed rank by rank: rank r holds the r-th chunk of every tile that
     has one, so the carried T of each tile is known before its next chunk
-    starts. An entry is skipped when its
-    tile's max T is below MIN_T (as the TPU kernel tests at each entry
-    start). Within an entry T is an inclusive cumprod over the chunk.
-    With `stats` (a dict) records the composited pair count under "pairs"."""
+    starts. An entry is skipped when its tile's max T is below MIN_T (as
+    the TPU kernel tests at each entry start). Within an entry the pairs
+    are walked one by one, w = g * T then T *= 1 - g, as the kernel's
+    threads do, so T, the early exit and the saturation record decide
+    identically in both.
+
+    exact=False is the fast profile's value semantics: each weight and each
+    colour is rounded to bf16 before the f32 accumulate (alpha is the sum
+    of the rounded weights); T stays f32 from the un-rounded weights.
+    emit_zcut also returns the saturation-slot record [n_tiles, SAT_BANDS]
+    (see rasterize). With `stats` (a dict) records the composited pair
+    count under "pairs"."""
     tw, th = tile_wh
     _, _, n_tiles = _grid(image_wh, tile_wh)
     p_n = tw * th
@@ -73,6 +91,7 @@ def rasterize_plain(binned, depth_tiles, *, image_wh, tile_wh, chunk: int,
     uu, uv, vv, u, v = _pixel_monomials(tw, th, dev)
     acc = torch.zeros((n_tiles, 4, p_n), dtype=torch.float32, device=dev)
     trans = torch.ones((n_tiles, p_n), dtype=torch.float32, device=dev)
+    rec = torch.zeros_like(trans) if emit_zcut else None
     lane = torch.arange(chunk, device=dev)
     composited = torch.zeros((), dtype=torch.int64, device=dev)
     n_rank = int(rank.max()) + 1 if rank.numel() else 0
@@ -94,38 +113,71 @@ def rasterize_plain(binned, depth_tiles, *, image_wh, tile_wh, chunk: int,
             if use_depth:
                 mask &= blk[6][..., None] < depth_tiles[tiles][:, None, :]
             g = torch.where(mask, torch.exp(e + blk[11][..., None]), 0.0)
-            t_incl = torch.cumprod(1.0 - g, dim=1)
-            t_excl = torch.cat(
-                [torch.ones_like(t_incl[:, :1]), t_incl[:, :-1]], dim=1)
-            weight = g * t_excl * trans[tiles][:, None, :]
+            omg = 1.0 - g
+            t = trans[tiles]  # [B, P], T where the entry starts
+            if emit_zcut:
+                smax = torch.where(in_run, blk[12], -1.0).amax(dim=1)
+                rec[tiles] = torch.where(
+                    t >= MIN_T, torch.maximum(rec[tiles], smax[:, None]),
+                    rec[tiles])
+            weight = g  # overwritten lane by lane: g[:, j] is read first
+            for j in range(chunk):
+                torch.mul(g[:, j], t, out=weight[:, j])
+                t = t * omg[:, j]
             rgb1 = torch.stack(
                 [blk[8], blk[9], blk[10], torch.ones_like(blk[8])], dim=1)
+            if not exact:
+                weight = round_bf16(weight)
+                rgb1 = round_bf16(rgb1)
             acc[tiles] += torch.bmm(rgb1, weight)
-            trans[tiles] = trans[tiles] * t_incl[:, -1]
+            trans[tiles] = t
             composited += in_run.sum()
     if stats is not None:
         stats["pairs"] = int(composited)
-    return acc
+    if not emit_zcut:
+        return acc
+    # per band b = min(row // (th // SAT_BANDS), SAT_BANDS - 1): the max
+    # over its pixels of (saturated ? record + 0.5 : SAT_NOCUT); rows of a
+    # tile height not divisible by SAT_BANDS fold into the last band
+    pix = torch.arange(p_n, device=dev)
+    band = torch.clamp(torch.div(
+        pix, max(th // SAT_BANDS, 1) * tw, rounding_mode="floor"),
+        max=SAT_BANDS - 1)
+    cut_p = torch.where(trans < MIN_T, rec + _SCUT_BUMP, SAT_NOCUT)
+    zcut = torch.stack(
+        [torch.where(band == b, cut_p, -1.0).amax(dim=1)
+         for b in range(SAT_BANDS)], dim=1)
+    return acc, zcut
 
 
 def rasterize(binned, depth_tiles, *, image_wh, tile_wh, chunk: int,
-              use_depth: bool = True, emit_zcut: bool = False):
+              use_depth: bool = True, exact: bool = True,
+              emit_zcut: bool = False):
     """Composite the binned pair table into [T, 4, P] premultiplied
     colour + alpha tile blocks (reassemble with `tiles_to_image`).
 
     binned: output of ops.binning.bin_pairs. depth_tiles: [T, th*tw]
     per-pixel depth, tested as `z < depth` when use_depth (1.0 when there is
-    no proxy). Every tile is written; a tile with no pairs is zeros. CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
-    if emit_zcut:
-        raise NotImplementedError(
-            "emit_zcut (the saturation-slot record) belongs to the fast "
-            "profile, which is not ported yet")
+    no proxy). Every tile is written; a tile with no pairs is zeros.
+    exact=False composites with the fast profile's bf16-rounded weights and
+    colours (rasterize_plain).
+
+    emit_zcut: also return the per-band saturation-SLOT record
+    [T, SAT_BANDS] f32: per horizontal band of a tile, the stream slot
+    (table row 12) beyond which no pair can contribute because every pixel
+    of the band was already opaque, SAT_NOCUT for a band with any
+    unsaturated pixel (an empty tile is all SAT_NOCUT). Per composited
+    chunk, a pixel whose T where the chunk starts is >= MIN_T raises its
+    record to the chunk's max slot; chunks the early exit skips update
+    nothing. The return becomes (tiles, zcut).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
     table = binned["table"]
     if not table.is_cuda:
         return rasterize_plain(binned, depth_tiles, image_wh=image_wh,
                                tile_wh=tile_wh, chunk=chunk,
-                               use_depth=use_depth)
+                               use_depth=use_depth, exact=exact,
+                               emit_zcut=emit_zcut)
     tw, th = tile_wh
     _, _, n_tiles = _grid(image_wh, tile_wh)
     p_n = tw * th
@@ -147,17 +199,20 @@ def rasterize(binned, depth_tiles, *, image_wh, tile_wh, chunk: int,
         raise ValueError(f"depth_tiles must be contiguous float32 "
                          f"[{n_tiles}, {p_n}]")
     out = torch.empty((n_tiles, 4, p_n), dtype=torch.float32, device=dev)
+    zcut = (torch.empty((n_tiles, SAT_BANDS), dtype=torch.float32, device=dev)
+            if emit_zcut else None)
     vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib = kernels.load("raster", gswt_raster=[
-        vp, ll, vp, vp, vp, ci, vp, ci, ci, ci, ci, vp])
+        vp, ll, vp, vp, vp, ci, ci, vp, vp, ci, ci, ci, ci, vp])
     rc = lib.gswt_raster(
         kernels.ptr(table), table.shape[1], kernels.ptr(rs), kernels.ptr(re_),
-        kernels.ptr(depth_tiles), int(bool(use_depth)), kernels.ptr(out),
+        kernels.ptr(depth_tiles), int(bool(use_depth)), int(not exact),
+        kernels.ptr(out), kernels.ptr(zcut) if emit_zcut else None,
         n_tiles, tw, th, chunk, kernels.stream_ptr(table),
     )
     kernels.LAUNCHES["raster"] += 1
     kernels.check(rc, "raster")
-    return out
+    return (out, zcut) if emit_zcut else out
 
 
 def tiles_to_image(tile_acc, *, image_wh, tile_wh):

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from .texsample import factored_bilinear, factored_fits
+from .texsample import factored_bilinear
 
 
 def pixel_rays(cam, image_wh):
@@ -56,34 +56,19 @@ def sky_directions(cam, image_wh, *, equirect: bool):
 def _sample_equirect(tex, dir_xyz):
     """SampleSphericalMap + bake tonemap (skybox.wgsl:74-97). tex [H,W,3].
 
-    On the card every texture goes through the bilinear kernel
-    (ops/texsample.py), which has no size limit. On the CPU a texture over
-    the JAX package's limit (factored_fits) takes four indexed taps in that
-    package's association, so the CPU tests compare like with like; the two
+    A texture of any size goes through the bilinear sampler
+    (ops/texsample.py factored_bilinear: its kernel on the card, its plain
+    version on the CPU). The JAX package sends a texture over its TPU
+    kernel's size limit through four indexed taps instead; the two
     associations differ in the last ulp."""
-    th, tw = tex.shape[:2]
-    x, y = equirect_texel_coords(dir_xyz, (th, tw))
-    if tex.is_cuda or factored_fits((3, th, tw)):
-        c = torch.movedim(
-            factored_bilinear(
-                torch.movedim(tex, -1, 0).contiguous(), x, y,
-                wrap_x=False, wrap_y=False,
-            ),
-            0, -1,
-        )
-    else:
-        x0 = torch.floor(x).long()
-        y0 = torch.floor(y).long()
-        x1 = torch.clamp(x0 + 1, max=tw - 1)
-        y1 = torch.clamp(y0 + 1, max=th - 1)
-        fx = (x - x0)[..., None]
-        fy = (y - y0)[..., None]
-        c = (
-            tex[y0, x0] * (1 - fx) * (1 - fy)
-            + tex[y0, x1] * fx * (1 - fy)
-            + tex[y1, x0] * (1 - fx) * fy
-            + tex[y1, x1] * fx * fy
-        )
+    x, y = equirect_texel_coords(dir_xyz, tex.shape[:2])
+    c = torch.movedim(
+        factored_bilinear(
+            torch.movedim(tex, -1, 0).contiguous(), x, y,
+            wrap_x=False, wrap_y=False,
+        ),
+        0, -1,
+    )
     # Reinhard + gamma done at bake time in the reference
     c = c / (c + 1.0)
     return torch.pow(torch.clamp(c, min=0.0), 1.0 / 2.2)

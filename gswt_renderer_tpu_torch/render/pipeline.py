@@ -18,7 +18,16 @@ stays numpy until the render thread uploads it, so the builder thread never
 touches a CUDA stream.
 
 Every domain is sized exactly from the frame's own counts; the image equals
-what the JAX package renders once its buckets have converged. The stages
+what the JAX package renders once its buckets have converged.
+
+Two profiles, as in the JAX package. The default fast profile
+(RendererConfig.exact=False, PARITY.md #8) quantizes what the compositor
+consumes (bf16 Cholesky factors of the quadratic, u16 floored z, u8
+colours), takes the height-map gradient analytically, renders the proxy at
+half resolution through the mip-pyramid sampler kernel, and composites with
+bf16-rounded weights; on top of it sat_cull feeds the compositor's
+saturation-slot record of one frame into the next frame's binning. The exact
+profile follows the WGSL/oracle math and is the parity reference. The stages
 run under profiler ranges gswt.project, gswt.skybox, gswt.proxy, gswt.bin
 and gswt.raster, which chip_smoke.py's profile phase reads.
 """
@@ -37,6 +46,7 @@ from ..core.config import RenderConfig
 from ..core.mathutil import OPENGL_TO_WGPU
 from ..io.textures import build_mip_chain
 from ..ops import binning, project, raster
+from ..ops.raster import SAT_BANDS, SAT_NOCUT
 from ..ops.kernels import resolve_device
 from ..ops.project import GS_BITS, pack_tex4
 from ..ops.proxy import atlas_words, make_map_grid, pack_mip_atlas, render_proxy
@@ -47,8 +57,6 @@ from .uniforms import SceneParams
 
 STREAM_BLOCK = 256  # stream panel width (ops/blockgather.py BLOCK)
 PANEL_ROWS = 16     # pos xyz, cov 6, rgba u32, packed gs|lod, map id, 4 pad
-
-_FAST_SLICE = "the fast-profile slice of the port"
 
 
 @dataclass
@@ -68,22 +76,39 @@ class RendererConfig:
     # that fail the compositor's depth test at every pixel of their tile.
     # Off by default, as in the JAX package.
     depth_cull: bool = False
-    # the saturation cull belongs to the fast profile (not ported yet)
+    # temporal saturation cull: the compositor records, per band of a
+    # tile, the STREAM SLOT beyond which nothing contributed this frame
+    # because the band was already opaque (ops/raster.py emit_zcut), and
+    # the NEXT frame's binning drops the splats behind that cut, dilated by
+    # sat_dilate cells for camera-motion margin. Slot-keyed, so the
+    # certificate renews itself: the cull never removes anything before the
+    # recorded slot, and each frame's record is sound for its own content;
+    # a stale cut under-composites for at most one frame. The culled pairs
+    # composite behind a transmittance < MIN_T = 0.5/255. Fast profile only
+    # (forced off in the exact profile). Off by default, as in the JAX
+    # package: it pays only on scenes whose tiles really saturate.
     sat_cull: bool = False
-    # the exact profile; the fast profile (PARITY.md #8) is not ported yet
-    exact: bool = True
+    sat_dilate: int = 1
+    # exact=True follows the WGSL/oracle math (parity-tested against the
+    # per-pixel oracle at <= 1e-3); the default fast profile quantizes the
+    # pair table and the compositor's weights, takes the analytic height-map
+    # gradient and halves the proxy resolution: deviations of ~1-2/255,
+    # under the reference's own 8-bit ROP quantization (PARITY.md #8)
+    exact: bool = False
     # the proxy raster bins triangles on its OWN tile grid (it returns a
     # full-image depth buffer, re-tiled to the splat grid)
     proxy_tile_w: int = 64
     proxy_tile_h: int = 32
     # proxy pass resolution divisor: 0 = auto (1, the reference's
-    # resolution, in the exact profile); div > 1 renders the proxy at
-    # 1/div resolution and upsamples (depth/hit nearest, colour bilinear)
+    # resolution, in the exact profile, 2 in the fast profile); div > 1
+    # renders the proxy at 1/div resolution and upsamples (depth/hit
+    # nearest, colour bilinear)
     proxy_res_div: int = 0
 
 
 _STATE_KEYS = ("store_packed", "panels", "seg_block", "seg_count",
-               "np_panel_blocks", "hm4", "height_map_wh",
+               "np_panel_blocks", "hm4", "height_map_wh", "hm_src",
+               "sat_zimg",
                "skybox_tex", "skybox_equirect", "proxy_tex", "proxy_mip_meta",
                "proxy_wh", "proxy_pyr", "proxy_pyr_meta", "proxy_verts",
                "proxy_tris")
@@ -161,7 +186,8 @@ def build_resident_state(engine) -> dict:
 def state_from_numpy(arrays: dict, device) -> dict:
     """The torch Renderer's resident state from numpy arrays (for example
     the JAX Renderer's store_packed, panels, seg_block, seg_count,
-    np_panel_blocks, hm4, height_map_wh, and its skybox and proxy state):
+    np_panel_blocks, hm4, height_map_wh, hm_src, its skybox and proxy state,
+    and its carried saturation-slot image _sat_zimg as sat_zimg):
     device arrays become tensors on `device`, host bookkeeping stays numpy
     or plain Python. The mip atlas (float32 holding bit-cast u32) is moved
     as raw int32 words; the pyramid planes (integers 0..255 in any float
@@ -173,8 +199,8 @@ def state_from_numpy(arrays: dict, device) -> dict:
         raise KeyError(f"unknown renderer state {sorted(unknown)}")
     out = {}
     for k, a in arrays.items():
-        if k in ("store_packed", "panels", "hm4", "skybox_tex",
-                 "proxy_verts"):
+        if k in ("store_packed", "panels", "hm4", "hm_src", "sat_zimg",
+                 "skybox_tex", "proxy_verts"):
             out[k] = torch.tensor(np.asarray(a, np.float32), device=dev)
         elif k in ("seg_block", "seg_count"):
             out[k] = np.asarray(a, np.int64)
@@ -211,11 +237,6 @@ class Renderer:
         self.device = resolve_device(device)
         self.engine = engine
         self.cfg = config or RendererConfig()
-        if not self.cfg.exact:
-            raise NotImplementedError(
-                f"the fast profile (exact=False) comes with {_FAST_SLICE}")
-        if self.cfg.sat_cull:
-            raise NotImplementedError(f"sat_cull comes with {_FAST_SLICE}")
         # full-f32 products: the projection math breaks the 1e-3 parity
         # budget under TF32 (the JAX package pins precision "highest")
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -224,6 +245,11 @@ class Renderer:
                                         self.device))
         self.height_map_wh = (1, 1)
         self.hm4 = torch.zeros((4, 1), dtype=torch.float32, device=self.device)
+        self.hm_src = None
+        # the previous sat-eligible frame's dilated saturation-slot image
+        # [nty * SAT_BANDS, ntx] and its view-projection (sat_cull)
+        self.sat_zimg = None
+        self.sat_vp = None
         self.skybox_tex = None
         self.skybox_equirect = True
         self.proxy_tex = None
@@ -256,10 +282,22 @@ class Renderer:
             self.hm4 = torch.as_tensor(
                 pack_tex4(user_data.height_map, int(w), int(h))
             ).to(self.device)
+            # small source map: the fast profile samples the bicubic
+            # surface of the pre-resize source directly
+            # (ops/project.py _smallmap_resized_bilinear)
+            self.hm_src = None
+            src = user_data.height_map_src
+            if not self.cfg.exact and src is not None:
+                sw, sh = user_data.height_map_src_wh
+                if sw * sh <= 4096:
+                    self.hm_src = torch.as_tensor(
+                        np.asarray(src, np.float32).reshape(sh, sw)
+                    ).to(self.device)
         else:
             self.height_map_wh = (1, 1)
             self.hm4 = torch.zeros((4, 1), dtype=torch.float32,
                                    device=self.device)
+            self.hm_src = None
         gv, gt = make_map_grid(
             user_data.tile_map_wh, user_data.tile_map_half_wh,
             user_data.tile_width,
@@ -288,7 +326,8 @@ class Renderer:
         """Upload the proxy ground texture. tex: [H,W,3] (the Lanczos mip
         chain is built here, proxy.rs:513-554) or a prebuilt list of mip
         levels. Keeps both the mip atlas (the exact profile's sampler) and
-        the packed pyramid (ops/texsample.py factored_mip_trilinear)."""
+        the packed pyramid (the fast profile's, ops/texsample.py
+        factored_mip_trilinear)."""
         if tex is None:
             self.proxy_tex = None
             return
@@ -590,12 +629,14 @@ class Renderer:
         return self.unpack_frame_uniforms(uniforms)
 
     def project(self, plan, camera: Camera, scene: SceneParams,
-                rc: RenderConfig, render_gs: bool = True, unpacked=None):
+                rc: RenderConfig, render_gs: bool = True):
         """Draw cull + stream assembly + projection of one frame from an
         uploaded plan (ops/project.py assemble_and_project outputs)."""
+        return self._project(
+            plan, self.frame_uniforms(camera, scene, rc, render_gs), scene, rc)
+
+    def _project(self, plan, unpacked, scene: SceneParams, rc: RenderConfig):
         c = self.cfg
-        if unpacked is None:
-            unpacked = self.frame_uniforms(camera, scene, rc, render_gs)
         scene_d, cam_d, lod_en, culling_dist, gs_enable = unpacked
         keep = project.cull_draws(plan["draw"], cam_d, culling_dist, lod_en)
         return project.assemble_and_project(
@@ -604,23 +645,25 @@ class Renderer:
             surface_type=int(scene.surface_type), draw_mode=int(rc.draw_mode),
             image_wh=(c.width, c.height),
             point_cloud=bool(rc.draw_point_cloud), gs_enable=gs_enable,
+            exact=c.exact, hm_src=self.hm_src,
         )
 
-    def proxy_pass(self, cam_d, scene_d, scene: SceneParams, rc: RenderConfig,
-                   mip_pyr=None):
+    def proxy_pass(self, cam_d, scene_d, scene: SceneParams, rc: RenderConfig):
         """The proxy ground pass at the configured resolution divisor.
-        Returns (color [H,W,4], depth [H,W], hit [H,W], aux). mip_pyr as in
-        ops/proxy.py render_proxy; the exact profile passes None (the atlas
-        sampler)."""
+        Returns (color [H,W,4], depth [H,W], hit [H,W], aux). The exact
+        profile samples the texture through the mip atlas; the fast profile
+        through the packed pyramid (the mip-pyramid sampler kernel)."""
         c = self.cfg
         div = int(c.proxy_res_div)
         if div <= 0:  # auto: the reference's resolution in the exact profile
-            div = 1
+            div = 1 if c.exact else 2
         p_wh = (-(-c.width // div), -(-c.height // div))
         prox = dict(atlas=self.proxy_tex, verts=self.proxy_verts,
                     tris=self.proxy_tris)
-        if mip_pyr is not None:
+        mip_pyr = None
+        if not c.exact and self.proxy_pyr is not None:
             prox["pyr"] = self.proxy_pyr
+            mip_pyr = self.proxy_pyr_meta
         pcol, depth, hit, paux = render_proxy(
             cam_d, scene_d, p_wh, self.hm4, self.height_map_wh, prox,
             self.proxy_wh, surface_type=int(scene.surface_type),
@@ -649,20 +692,22 @@ class Renderer:
 
     def front(self, plan, camera: Camera, scene: SceneParams,
               rc: RenderConfig, render_gs: bool = True,
-              use_skybox: bool = False, use_proxy: bool = False):
+              use_skybox: bool = False, use_proxy: bool = False,
+              sat_zimg=None):
         """Projection, background + proxy depth, binning of one frame from
         an uploaded plan. Returns (binned, bg [H,W,4], depth_tiles [T,P],
         aux): the binned pair table (ops/binning.py bin_pairs), what the
         compositor's output lies over and is depth-tested against. The
         background and depth come BEFORE binning: the proxy depth feeds the
-        occlusion cull."""
+        occlusion cull. sat_zimg ([nty * SAT_BANDS, ntx] or None): the
+        previous frame's dilated saturation-slot image (binning's sat_simg)."""
         c = self.cfg
         image_wh = (c.width, c.height)
         tile_wh = (c.tile_w, c.tile_h)
         unpacked = self.frame_uniforms(camera, scene, rc, render_gs)
         scene_d, cam_d = unpacked[0], unpacked[1]
         with record_function("gswt.project"):
-            p = self.project(plan, camera, scene, rc, unpacked=unpacked)
+            p = self._project(plan, unpacked, scene, rc)
         aux = {}
         if use_skybox:
             with record_function("gswt.skybox"):
@@ -689,27 +734,144 @@ class Renderer:
         with record_function("gswt.bin"):
             binned = binning.bin_pairs(
                 p, image_wh=image_wh, tile_wh=tile_wh, chunk=c.chunk,
-                cull_exact=c.cull_exact, occ_zimg=occ_zimg,
+                exact=c.exact, cull_exact=c.cull_exact, occ_zimg=occ_zimg,
+                sat_simg=sat_zimg,
             )
         aux.update(n_pairs=binned["n_pairs"],
                    n_pairs_kept=binned["n_pairs_kept"],
                    n_live=binned["n_live"])
         return binned, bg, depth_tiles, aux
 
-    def back(self, binned, bg, depth_tiles, *, use_proxy: bool):
+    def back(self, binned, bg, depth_tiles, *, use_proxy: bool,
+             emit_zcut: bool = False):
         """Compositor (depth-tested against the proxy when there is one) +
-        premultiplied over-composite onto the background. [H, W, 4]."""
+        premultiplied over-composite onto the background. [H, W, 4]; with
+        emit_zcut also the next frame's dilated saturation-slot image
+        [nty * SAT_BANDS, ntx], band-row-major."""
         c = self.cfg
         image_wh = (c.width, c.height)
         tile_wh = (c.tile_w, c.tile_h)
         with record_function("gswt.raster"):
             tiles = raster.rasterize(
                 binned, depth_tiles, image_wh=image_wh, tile_wh=tile_wh,
-                chunk=c.chunk, use_depth=bool(use_proxy),
+                chunk=c.chunk, use_depth=bool(use_proxy), exact=c.exact,
+                emit_zcut=emit_zcut,
             )
+        if emit_zcut:
+            tiles, zcut = tiles
         img = raster.tiles_to_image(tiles, image_wh=image_wh, tile_wh=tile_wh)
         # premultiplied-over: final = gs + T * background
-        return img + (1.0 - img[..., 3:4]) * bg
+        out = img + (1.0 - img[..., 3:4]) * bg
+        if not emit_zcut:
+            return out
+        ntx, nty, _ = binning.grid_dims(image_wh, tile_wh)
+        # [T, B] -> band-major rows [nty * B, ntx]: row = tile_row * B + band
+        # (ops/binning.py's global band-row indexing)
+        zimg = zcut.reshape(nty, ntx, SAT_BANDS).permute(0, 2, 1)
+        zimg = zimg.reshape(nty * SAT_BANDS, ntx)
+        # camera-motion margin: a deeper neighbouring cut wins (keeps more)
+        # within sat_dilate band rows and tile columns, off-grid cells
+        # counting 0.0. Small on purpose: the max takes SAT_NOCUT from any
+        # unsaturated neighbour, so a large radius poisons whole saturated
+        # regions; a stale cut mispredicts for at most one frame.
+        for _ in range(max(int(c.sat_dilate), 0)):
+            for dim in (1, 0):
+                pad = (1, 1, 0, 0) if dim == 1 else (0, 0, 1, 1)
+                z = torch.nn.functional.pad(zimg, pad, value=0.0)
+                n = zimg.shape[dim]
+                zimg = torch.maximum(zimg, torch.maximum(
+                    z.narrow(dim, 2, n), z.narrow(dim, 0, n)))
+        return out, zimg
+
+    def _sat_motion_exceeds(self, camera, prev_vp, vp_now) -> bool:
+        """True when the camera moved or rotated enough since the previous
+        sat-eligible frame that screen positions can shift past the
+        saturation cut's dilation margin (sat_dilate tile columns
+        horizontally, sat_dilate band rows vertically: the only slack the
+        cut image's dilation provides, see back()).
+
+        Probe: a 3x3 NDC ray grid through the CURRENT camera sampled at
+        three scene depths, projected with both view-projection matrices;
+        max pixel delta against the margin. Host-side NumPy, ~30 points a
+        frame. Conservative failure modes count as exceeded (a probe behind
+        either camera, a singular matrix)."""
+        if np.array_equal(prev_vp, vp_now):
+            return False
+        c = self.cfg
+        dil = max(int(c.sat_dilate), 0)
+        margin_x = dil * c.tile_w
+        margin_y = dil * max(c.tile_h // SAT_BANDS, 1)
+        try:
+            inv = np.linalg.inv(vp_now.astype(np.float64))
+        except np.linalg.LinAlgError:
+            return True
+        g = np.array([-0.85, 0.0, 0.85], np.float64)
+        xs, ys = np.meshgrid(g, g)
+        ndc = np.stack([xs.ravel(), ys.ravel()], axis=1)  # [9, 2]
+
+        def unproj(zc):
+            h = np.concatenate(
+                [ndc, np.full((9, 1), zc), np.ones((9, 1))], axis=1)
+            w = h @ inv.T
+            return w[:, :3] / w[:, 3:4]
+
+        # two GL-clip depths span the frustum; sample world points at fixed
+        # distances along the rays so near content (which moves fastest in
+        # screen space) is represented
+        near = unproj(-0.8)
+        d = unproj(0.8) - near
+        d /= np.maximum(np.linalg.norm(d, axis=1, keepdims=True), 1e-12)
+        pos = np.asarray(camera.position, np.float64)
+        pts = np.concatenate([pos + d * s for s in (2.0, 10.0, 50.0)], axis=0)
+        pts_h = np.concatenate([pts, np.ones((pts.shape[0], 1))], axis=1)
+
+        def to_px(m):
+            h = pts_h @ m.astype(np.float64).T
+            w = h[:, 3]
+            ok = w > 1e-6
+            x = (h[:, 0] / np.where(ok, w, 1.0) * 0.5 + 0.5) * c.width
+            y = (h[:, 1] / np.where(ok, w, 1.0) * 0.5 + 0.5) * c.height
+            return x, y, ok
+
+        x0, y0, ok0 = to_px(prev_vp)
+        x1, y1, ok1 = to_px(vp_now)
+        if not np.all(ok0 & ok1):  # a probe crossed a camera plane
+            return True
+        return bool(np.max(np.abs(x1 - x0)) > margin_x
+                    or np.max(np.abs(y1 - y0)) > margin_y)
+
+    def _sat_cut_in(self, camera: Camera, rc: RenderConfig, render_gs: bool):
+        """The saturation cull's part in this frame: None when the frame
+        does not take part, else the cut image binning tests against (all
+        SAT_NOCUT until a record exists).
+
+        Fast-profile colour frames only: debug draw modes and point clouds
+        change what "contributes" means, and the exact profile is the
+        parity reference. The banded record and binning's band lookup
+        assume uniform band rows (tile_h % SAT_BANDS == 0); other tile
+        heights disable the cull. Motion gate: the recorded cut is sound
+        only within the dilation margin, and beyond it a stale cut would
+        mispredict EVERY frame under sustained motion, so a moving frame
+        drops the cut and renders without any of the cull; the first
+        static-enough frame re-certifies from its own run."""
+        c = self.cfg
+        if not (c.sat_cull and not c.exact and render_gs
+                and not rc.draw_point_cloud and int(rc.draw_mode) == 0
+                and c.tile_h % SAT_BANDS == 0):
+            return None
+        vp_now = np.asarray(camera.view_proj(), np.float32).reshape(4, 4)
+        prev_vp, self.sat_vp = self.sat_vp, vp_now
+        if prev_vp is not None and self._sat_motion_exceeds(
+                camera, prev_vp, vp_now):
+            self.sat_zimg = None
+            return None
+        ntx, nty, _ = binning.grid_dims((c.width, c.height),
+                                        (c.tile_w, c.tile_h))
+        shape = (nty * SAT_BANDS, ntx)
+        if self.sat_zimg is not None and tuple(self.sat_zimg.shape) == shape:
+            return self.sat_zimg
+        return torch.full(shape, SAT_NOCUT, dtype=torch.float32,
+                          device=self.device)
 
     def render(self, dt: DrawTable, camera: Camera, scene: SceneParams,
                render_config: RenderConfig | None = None, *,
@@ -720,15 +882,20 @@ class Renderer:
         tensor with as_numpy=False). The skybox and the proxy are drawn only
         when asked for AND their texture is set. last_aux holds the frame's
         counts: n_pairs (int), n_pairs_kept and n_live (0-d tensors), and
-        proxy_pairs (int) when the proxy was drawn."""
+        proxy_pairs (int) when the proxy was drawn. With sat_cull the frame
+        also leaves its saturation-slot image in sat_zimg for the next."""
         use_skybox = bool(use_skybox and self.skybox_tex is not None)
         use_proxy = bool(use_proxy and self.proxy_tex is not None)
         rc = render_config or RenderConfig.new(self.engine.n_tiles[0])
         if staged is None:
             staged = self.stage(dt, camera, rc.culling_dist)
+        sat_zin = self._sat_cut_in(camera, rc, render_gs)
         binned, bg, depth_tiles, aux = self.front(
             self.upload_plan(staged), camera, scene, rc, render_gs=render_gs,
-            use_skybox=use_skybox, use_proxy=use_proxy)
-        img = self.back(binned, bg, depth_tiles, use_proxy=use_proxy)
+            use_skybox=use_skybox, use_proxy=use_proxy, sat_zimg=sat_zin)
+        img = self.back(binned, bg, depth_tiles, use_proxy=use_proxy,
+                        emit_zcut=sat_zin is not None)
+        if sat_zin is not None:
+            img, self.sat_zimg = img
         self.last_aux = aux
         return img.cpu().numpy() if as_numpy else img

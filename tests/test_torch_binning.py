@@ -1,9 +1,13 @@
-"""The port's binning against the JAX package's bin_pairs (exact profile).
+"""The port's binning against the JAX package's bin_pairs, both profiles.
 
 The same projection outputs (numpy, from a seed) go through both. What must
 match: each tile's run of stream slots (the joint (tile, slot) order) and
 range_start/range_end exactly, the pair-table rows 0-12 of the live pairs
-within 1e-5 relative, and the dead-pair encoding (k5 = -1e30, ln a = -inf)."""
+within 1e-5 relative, and the dead-pair encoding (k5 = -1e30, ln a = -inf).
+In the fast profile (exact=False) the z row and the colours are bit-equal
+(the same integer codes times the same f32 constant), ln alpha is equal to
+the last ulp of the two libraries' log, and the k rows keep the 1e-5 relative (of the row's scale) that the recentring's
+products may differ by."""
 
 import jax
 import jax.numpy as jnp
@@ -73,6 +77,74 @@ def test_bin_pairs_matches_jax(cull_exact, seed, compact):
     assert tt.shape[1] % CHUNK == 0
     assert np.all(tt[5, n_kept:] == np.float32(-1e30))
     assert np.all(np.isneginf(tt[11, n_kept:]))
+
+
+@pytest.mark.parametrize("cull_exact", [True, False])
+@pytest.mark.parametrize("seed,compact", [(0, False), (1, True), (5, True)])
+def test_bin_pairs_fast_matches_jax(cull_exact, seed, compact):
+    """exact=False: the quantized payload (bf16 Cholesky factors, u16
+    floored z, u8 colours) and the ellipse cull on the quantized
+    coefficients. Colours carry NaN, +-inf and out-of-range values."""
+    p = _proj(2000, seed)
+    rng = np.random.default_rng(100 + seed)
+    col = [c.copy() for c in p["color"]]
+    for c, bad in zip(col, (np.nan, np.inf, -np.inf, 1.7)):
+        c[rng.random(c.shape[0]) < 0.02] = bad
+    p["color"] = tuple(col)
+    # z on and beyond the [0, 1] ends of the fixed-point range
+    p["z"][:8] = [0.0, 1.0, -0.1, 1.3, 0.5, 65534.5 / 65535, 1e-6, 0.999999]
+    kw = dict(max_live=1024, live_buckets=(1024,)) if compact else {}
+    jb = jbin.bin_pairs(jax.tree_util.tree_map(jnp.asarray, p),
+                        image_wh=IMAGE_WH, tile_wh=TILE_WH, max_pairs=1 << 15,
+                        chunk=CHUNK, exact=False, cull_exact=cull_exact,
+                        elem_paths=2, **kw)
+    assert not bool(jb["overflow"])
+    tb = tbin.bin_pairs(_torch_tree(p), image_wh=IMAGE_WH, tile_wh=TILE_WH,
+                        chunk=CHUNK, exact=False, cull_exact=cull_exact)
+    jt = np.asarray(jb["table"])
+    tt = tb["table"].numpy()
+    rs, re_ = np.asarray(jb["range_start"]), np.asarray(jb["range_end"])
+    np.testing.assert_array_equal(tb["range_start"].numpy(), rs)
+    np.testing.assert_array_equal(tb["range_end"].numpy(), re_)
+    assert _runs(tt, rs, re_) == _runs(jt, rs, re_)
+    n_kept = int(jb["n_pairs_kept"])
+    assert int(tb["n_pairs_kept"]) == n_kept and n_kept > 1000
+    assert tb["n_pairs"] == int(jb["n_pairs"])
+    # z key, colours and slot: bit-equal; ln alpha to the last ulp of the
+    # two libraries' log (-inf for alpha 0 in both)
+    for row in (6, 8, 9, 10, 12):
+        np.testing.assert_array_equal(tt[row, :n_kept], jt[row, :n_kept],
+                                      err_msg=f"row {row}")
+    np.testing.assert_allclose(tt[11, :n_kept], jt[11, :n_kept], rtol=3e-7,
+                               atol=0)
+    assert np.isneginf(tt[11, :n_kept]).sum() > 10
+    codes = tt[6, :n_kept] * 65535.0
+    np.testing.assert_allclose(codes, np.round(codes), atol=2e-3)
+    assert np.isfinite(tt[8:11, :n_kept]).all()
+    for row in range(6):
+        scale = np.abs(jt[row, :n_kept]).max()
+        np.testing.assert_allclose(tt[row, :n_kept], jt[row, :n_kept],
+                                   rtol=1e-5, atol=1e-5 * scale,
+                                   err_msg=f"row {row}")
+    # the fast table differs from the exact one: the payload was quantized
+    te = tbin.bin_pairs(_torch_tree(p), image_wh=IMAGE_WH, tile_wh=TILE_WH,
+                        chunk=CHUNK, exact=True, cull_exact=cull_exact)
+    assert not np.array_equal(te["table"].numpy()[6], tt[6])
+
+
+def test_quantize_z_floors_to_u16_steps():
+    """One helper makes the depth key of the table and of both levels of
+    the occlusion cull: floor(clip(z) * 65535) / 65535, never above z."""
+    z = np.array([0.0, 1.0, -0.5, 2.0, 0.5, 0.3333333, 1e-6, 0.9999999,
+                  12345.99 / 65535], np.float32)
+    got = tbin.quantize_z(torch.from_numpy(z)).numpy()
+    want = (np.floor(np.clip(z, 0.0, 1.0) * np.float32(65535.0))
+            * np.float32(1.0 / 65535.0)).astype(np.float32)
+    np.testing.assert_array_equal(got, want)
+    assert (got <= np.clip(z, 0.0, 1.0)).all()
+    zj = jnp.floor(jnp.clip(jnp.asarray(z), 0.0, 1.0) * 65535.0) \
+        * jnp.float32(1.0 / 65535.0)
+    np.testing.assert_array_equal(got, np.asarray(zj))
 
 
 def test_expand_bboxes_matches_jax():

@@ -8,7 +8,10 @@ GPU host without JAX:
 
 (GSWT_TEST_TPU=1 keeps tests/conftest.py from importing jax.)
 Tolerances: the block gather is bit-exact; the compositor within 1e-4 per
-channel (FP32 summation order, expf vs torch.exp); the triangle raster's z
+channel in its exact and its fast variant (the plain version walks a chunk's
+pairs in the kernel's order, so T and the bf16-rounded weights agree and only
+the FP32 order of the colour sums differs) and its saturation-slot record
+EQUAL (integers + 0.5); the triangle raster's z
 bit-equal and its attributes within 1e-5 relative (the kernel rounds every
 multiply and add as the plain version does; only the order of a tie's sum
 can differ); the bilinear sampler bit-equal (same operations, each rounded
@@ -140,6 +143,165 @@ def test_raster_on_binned_random_splats(cuda, seed):
         assert float(got[:, 3].max()) > 0.5
 
 
+def _opaque_splats(n, seed, device):
+    """A mix of big stackers and small splats with alpha 0.85-0.99 on a
+    256x128 image, so tiles saturate early (the scene of the CPU tests of
+    the saturation-slot record)."""
+    rng = np.random.default_rng(seed)
+    big = rng.random(n) < 0.5
+    qa = np.where(big, rng.uniform(0.001, 0.01, n), rng.uniform(0.05, 0.4, n))
+    qc = np.where(big, rng.uniform(0.001, 0.01, n), rng.uniform(0.05, 0.4, n))
+    p = dict(
+        cx=rng.uniform(0, 256, n), cy=rng.uniform(0, 128, n),
+        ext_x=np.where(big, rng.uniform(40, 90, n), rng.uniform(3, 12, n)),
+        ext_y=np.where(big, rng.uniform(25, 60, n), rng.uniform(3, 12, n)),
+        z=np.sort(rng.uniform(0.1, 0.9, n)))
+    p = {k: torch.from_numpy(v.astype(np.float32)).to(device)
+         for k, v in p.items()}
+    p["valid"] = torch.ones(n, dtype=torch.bool, device=device)
+    p["q"] = tuple(torch.from_numpy(x.astype(np.float32)).to(device)
+                   for x in (qa, 0.3 * np.sqrt(qa * qc), qc))
+    col = [rng.random(n) for _ in range(3)] + [rng.uniform(0.85, 0.99, n)]
+    p["color"] = tuple(torch.from_numpy(x.astype(np.float32)).to(device)
+                       for x in col)
+    return p
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("seed", [2, 3])
+def test_raster_zcut_variant_equals_plain(cuda, seed, exact):
+    """emit_zcut: the kernel's record equals the plain version's, entry for
+    entry, the colour stays within TOL, and emitting the record does not
+    change the colour the kernel writes."""
+    image_wh, tile_wh, chunk = (256, 128), (64, 32), 128
+    b = binning.bin_pairs(_opaque_splats(1024, seed, cuda), image_wh=image_wh,
+                          tile_wh=tile_wh, chunk=chunk, exact=exact,
+                          cull_exact=False)
+    depth = torch.ones((16, 64 * 32), device=cuda)
+    kw = dict(image_wh=image_wh, tile_wh=tile_wh, chunk=chunk,
+              use_depth=False, exact=exact)
+    before = kernels.LAUNCHES["raster"]
+    got, zcut = raster.rasterize(b, depth, emit_zcut=True, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["raster"] == before + 1
+    want, zwant = raster.rasterize_plain(b, depth, emit_zcut=True, **kw)
+    assert tuple(zcut.shape) == (16, raster.SAT_BANDS)
+    assert torch.equal(zcut, zwant)
+    assert int((zcut < raster.SAT_NOCUT).sum()) >= 4
+    assert float((got - want).abs().max()) <= TOL
+    assert torch.equal(got, raster.rasterize(b, depth, **kw))
+
+
+def test_raster_zcut_folds_remainder_rows_and_marks_empty_tiles(cuda):
+    """A tile height not divisible by SAT_BANDS folds its last rows into the
+    last band; a tile without pairs is all SAT_NOCUT."""
+    b = _saturating_binned(128, 0, 0.9, cuda)
+    b["table"][12] = torch.arange(b["table"].shape[1], device=cuda)
+    b["range_start"] = torch.tensor([0, 300, 0], dtype=torch.int32,
+                                    device=cuda)
+    b["range_end"] = torch.tensor([300, 600, 0], dtype=torch.int32,
+                                  device=cuda)
+    kw = dict(image_wh=(192, 30), tile_wh=(64, 30), chunk=128,
+              use_depth=False)
+    depth = torch.ones((3, 64 * 30), device=cuda)
+    got, zcut = raster.rasterize(b, depth, emit_zcut=True, **kw)
+    want, zwant = raster.rasterize_plain(b, depth, emit_zcut=True, **kw)
+    assert torch.equal(zcut, zwant)
+    assert float((got - want).abs().max()) <= TOL
+    assert bool((zcut[0] < raster.SAT_NOCUT).all()), "tile 0 saturates"
+    assert bool((zcut[1:] == raster.SAT_NOCUT).all())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_raster_fast_variant_matches_plain(cuda, seed):
+    """exact=False on the fast profile's own table: weights and colours
+    rounded to bf16 before the f32 accumulate, in the kernel as in the plain
+    version, within TOL; and the rounding is really there (the variant
+    differs from the exact one by up to a bf16 step)."""
+    image_wh, tile_wh, chunk = (256, 128), (64, 32), 256
+    p = _opaque_splats(3000, seed, cuda)
+    p["color"] = p["color"][:3] + (p["color"][3] * 0.4,)
+    b = binning.bin_pairs(p, image_wh=image_wh, tile_wh=tile_wh, chunk=chunk,
+                          exact=False)
+    depth = 0.1 + 0.8 * torch.rand(
+        (16, 64 * 32), device=cuda,
+        generator=torch.Generator(device=cuda).manual_seed(seed))
+    for use_depth in (False, True):
+        kw = dict(image_wh=image_wh, tile_wh=tile_wh, chunk=chunk,
+                  use_depth=use_depth)
+        got = raster.rasterize(b, depth, exact=False, **kw)
+        want = raster.rasterize_plain(b, depth, exact=False, **kw)
+        assert float((got - want).abs().max()) <= TOL
+        assert float(got[:, 3].max()) > 0.5
+        step = float((got - raster.rasterize(b, depth, **kw)).abs().max())
+        assert 1e-5 < step <= 2.0 ** -8
+
+
+@pytest.mark.parametrize("sat_cull", [False, True])
+def test_fast_renderer_frames_match_cpu_path(cuda, sat_cull):
+    """The default (fast) profile on the card against the CPU path, gs-only
+    and with skybox + proxy (half-res proxy through the pyramid sampler
+    kernel), over three frames at a fixed camera; with sat_cull the carried
+    saturation-slot image must be the CPU path's. Budget: the exact
+    profile's (mean < 1e-4, at most 5e-4 of the pixels over 1e-3) gs-only;
+    with the proxy, at most 0.2% of the pixels, for an edge pixel of the
+    half-res triangle raster that falls to the other side on one ulp and
+    covers four pixels of the frame."""
+    from gswt_renderer_tpu_torch.core import Camera, UserData
+    from gswt_renderer_tpu_torch.core.config import RenderConfig, SurfaceType
+    from gswt_renderer_tpu_torch.io.synth import synthetic_scene_vec
+    from gswt_renderer_tpu_torch.render.pipeline import Renderer, RendererConfig
+    from gswt_renderer_tpu_torch.render.uniforms import SceneParams
+    from gswt_renderer_tpu_torch.tiles import WangTileEngine
+
+    wang = WangTileEngine(synthetic_scene_vec(n_lod=2, splats_per_tile=256))
+    ud = UserData.from_ui(tile_map_half_wh=(2, 2), height_map_scale=(1.0, 0.3),
+                          height_map_wh=(8, 8), lod_max_dist=8.0,
+                          surface_type=SurfaceType.HEIGHT_MAP)
+    wang.configure(ud)
+    cam_pos = np.array([0.0, -4.0, 2.5], np.float32)
+    wang.build_tiles(cam_pos)
+    camera = Camera((128, 128), cam_pos, (0.0, 2.0, 0.0), (0.0, 0.0, 1.0),
+                    np.deg2rad(45.0), 0.1, 200.0)
+    dt = wang.sort_tiles(cam_pos, camera.view_proj())
+    rc = RenderConfig.new(wang.n_tiles[0])
+    sp = SceneParams.from_data(ud, wang.center_coord, rc)
+    sky = np.linspace(0, 2, 16, dtype=np.float32)[:, None, None] * np.ones(
+        (16, 32, 3), np.float32)
+    checker = np.kron(np.indices((8, 8)).sum(0) % 2,
+                      np.ones((4, 4))).astype(np.float32)
+    tex = np.stack([checker * 0.8 + 0.1, checker * 0.5 + 0.2,
+                    checker * 0.3 + 0.1], axis=-1)
+    for full in (False, True):
+        rs = []
+        for device in (cuda, "cpu"):
+            r = Renderer(wang, RendererConfig(
+                width=128, height=128, max_draws=128, max_stream=1 << 15,
+                chunk=128, tile_w=32, tile_h=32, sat_cull=sat_cull),
+                device=device)
+            assert r.cfg.exact is False
+            r.configure(ud)
+            r.set_skybox(sky)
+            r.set_proxy(tex)
+            rs.append(r)
+        before = dict(kernels.LAUNCHES)
+        for _ in range(3):
+            gpu, cpu = (r.render(dt, camera, sp, rc, use_skybox=full,
+                                 use_proxy=full) for r in rs)
+        diff = np.abs(gpu - cpu).max(axis=-1)
+        assert diff.mean() < 1e-4
+        assert np.mean(diff > 1e-3) <= (2e-3 if full else 5e-4)
+        assert kernels.LAUNCHES["raster"] == before.get("raster", 0) + 3
+        if full:
+            assert (kernels.LAUNCHES["mip_trilinear"]
+                    == before.get("mip_trilinear", 0) + 3)
+        if sat_cull:
+            assert torch.equal(rs[0].sat_zimg.cpu(), rs[1].sat_zimg)
+            assert int((rs[1].sat_zimg < raster.SAT_NOCUT).sum()) > 0
+        else:
+            assert rs[0].sat_zimg is None
+
+
 def test_renderer_frame_matches_cpu_path(cuda):
     from gswt_renderer_tpu_torch.core import Camera, UserData
     from gswt_renderer_tpu_torch.core.config import RenderConfig, SurfaceType
@@ -163,7 +325,8 @@ def test_renderer_frame_matches_cpu_path(cuda):
     imgs = []
     for device in (cuda, "cpu"):
         r = Renderer(wang, RendererConfig(width=128, height=128, max_draws=128,
-                                          max_stream=1 << 15, chunk=128),
+                                          max_stream=1 << 15, chunk=128,
+                                          exact=True),
                      device=device)
         r.configure(ud)
         imgs.append(r.render(dt, camera, sp, rc))
@@ -361,7 +524,7 @@ def test_full_config_frame_matches_cpu_path(cuda):
     for device in (cuda, "cpu"):
         r = Renderer(wang, RendererConfig(width=128, height=128, max_draws=128,
                                           max_stream=1 << 15, chunk=128,
-                                          depth_cull=True),
+                                          depth_cull=True, exact=True),
                      device=device)
         r.configure(ud)
         r.set_skybox(sky)

@@ -131,7 +131,7 @@ def test_depth_cull_frame_equals_frame_without_it():
             viewport=(64, 64),
             renderer_config=RendererConfig(
                 width=64, height=64, max_draws=64, max_stream=1 << 13,
-                chunk=128, depth_cull=dc, tile_w=16, tile_h=8),
+                chunk=128, depth_cull=dc, tile_w=16, tile_h=8, exact=True),
             synchronous=True, device="cpu")
         eng.set_skybox(sky, equirect=True)
         eng.set_proxy(tex)

@@ -63,7 +63,7 @@ def test_entry_points_default_to_the_card():
     from gswt_renderer_tpu_torch.tiles import WangTileEngine
 
     sv = synthetic_scene_vec(n_lod=1, splats_per_tile=16)
-    cfg = RendererConfig(width=64, height=64, max_draws=16)
+    cfg = RendererConfig(width=64, height=64, max_draws=16, exact=True)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Engine(sv, viewport=(64, 64), renderer_config=cfg, synchronous=True)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -75,11 +75,13 @@ def test_entry_points_default_to_the_card():
 
 
 def test_unported_paths_raise():
-    """What is still to port raises and names its slice (the fast profile);
-    what this package has ported does not raise."""
+    """Nothing of the Renderer's configuration is left to port: the fast
+    profile (the default), sat_cull, depth_cull, the skybox and the proxy
+    all construct and render, and no source of the port raises
+    NotImplementedError any more."""
+    from gswt_renderer_tpu_torch.core import UserData
     from gswt_renderer_tpu_torch.engine import Engine
     from gswt_renderer_tpu_torch.io.synth import synthetic_scene_vec
-    from gswt_renderer_tpu_torch.ops import raster
     from gswt_renderer_tpu_torch.render.pipeline import RendererConfig
 
     sv = synthetic_scene_vec(n_lod=1, splats_per_tile=16)
@@ -90,12 +92,16 @@ def test_unported_paths_raise():
                                                      max_draws=16, **cfg),
                       synchronous=True, device="cpu")
 
-    for bad in (dict(exact=False), dict(sat_cull=True)):
-        with pytest.raises(NotImplementedError, match="fast-profile slice"):
-            engine(**bad)
-    with pytest.raises(NotImplementedError, match="fast"):
-        raster.rasterize({}, None, image_wh=(64, 64), tile_wh=(64, 32),
-                         chunk=128, emit_zcut=True)
+    assert RendererConfig().exact is False, "fast is the default profile"
+    for cfg in (dict(), dict(exact=False, sat_cull=True), dict(exact=True)):
+        eng = engine(**cfg)
+        eng.configure(UserData.from_ui(tile_map_half_wh=(2, 2),
+                                       lod_max_dist=8.0))
+        img = eng.frame()
+        assert img.shape == (64, 64, 4) and np.isfinite(img).all()
+        eng.shutdown()
+    for path in sorted(PKG.rglob("*.py")):
+        assert "NotImplementedError" not in path.read_text(), path
     eng = engine(depth_cull=True)
     eng.set_skybox(None)
     eng.set_proxy(None)

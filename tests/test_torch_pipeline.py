@@ -1,9 +1,11 @@
 """The ported slices as a whole: the port's Renderer and Engine against the
-JAX package's (exact profile, Pallas kernels in interpret mode on the CPU)
-and, gs-only, against the per-pixel NumPy oracle, on the scene and
-RendererConfig of tests/test_pipeline.py; gs-only frames and full-config
-frames (skybox + proxy ground + splats). Budget: tests/test_pipeline.py's
-_assert_close, mean abs < 1e-4 and at most 5e-4 of the pixels over 1e-3."""
+JAX package's (Pallas kernels in interpret mode on the CPU) and, gs-only,
+against the per-pixel NumPy oracle, on the scene and RendererConfig of
+tests/test_pipeline.py; gs-only frames and full-config frames (skybox + proxy
+ground + splats). Exact profile: tests/test_pipeline.py's _assert_close, mean
+abs < 1e-4 and at most 5e-4 of the pixels over 1e-3. Fast profile (the
+default): _assert_close_fast below; tests/test_torch_fastmode.py holds it to
+the oracle."""
 
 import json
 
@@ -46,7 +48,7 @@ def _jax_config():
 
 def _config():
     return RendererConfig(width=W, height=H, max_draws=128,
-                          max_stream=1 << 15, chunk=128)
+                          max_stream=1 << 15, chunk=128, exact=True)
 
 
 CASES = {
@@ -164,7 +166,8 @@ def test_engine_matches_jax_engine_over_a_camera_move():
 def test_engine_checkpoint_roundtrip(tmp_path):
     kw = dict(viewport=(64, 64), synchronous=True, device="cpu",
               renderer_config=RendererConfig(width=64, height=64,
-                                             max_draws=64, chunk=128))
+                                             max_draws=64, chunk=128,
+                                             exact=True))
     eng = Engine(t_synth(n_lod=2, splats_per_tile=48), **kw)
     eng.configure(tcore.UserData.from_ui(tile_map_half_wh=(2, 2),
                                          lod_max_dist=8.0, lod_blending=True))
@@ -209,7 +212,7 @@ def _jax_state(jr):
         store_packed=np.asarray(jr.store_packed), panels=np.asarray(jr.panels),
         seg_block=jr.seg_block, seg_count=jr.seg_count,
         np_panel_blocks=jr.np_panel_blocks, hm4=np.asarray(jr.hm4),
-        height_map_wh=jr.height_map_wh,
+        height_map_wh=jr.height_map_wh, hm_src=np.asarray(jr.hm_src),
         skybox_tex=np.asarray(jr.skybox_tex),
         skybox_equirect=jr.skybox_equirect,
         proxy_tex=np.asarray(jr.proxy_tex), proxy_mip_meta=jr.proxy_mip_meta,
@@ -304,7 +307,7 @@ def _full_engines(div=0, **ui):
         t_synth(n_lod=2, splats_per_tile=48), viewport=(96, 64),
         renderer_config=RendererConfig(
             width=96, height=64, max_draws=64, max_stream=1 << 13, chunk=128,
-            proxy_res_div=div, proxy_tile_w=32, proxy_tile_h=16),
+            proxy_res_div=div, proxy_tile_w=32, proxy_tile_h=16, exact=True),
         synchronous=True, device="cpu")
     for eng, mod in ((jeng, UserData), (teng, tcore.UserData)):
         eng.set_skybox(sky, equirect=True)
@@ -368,3 +371,105 @@ def test_bilinear_upsample_matches_jax_image_resize_at_the_borders():
             torch.from_numpy(src).permute(2, 0, 1)[None], scale_factor=div,
             mode="bilinear", align_corners=False)[0].permute(1, 2, 0).numpy()
         np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------- #
+# the fast profile (the default RendererConfig), full config
+# ---------------------------------------------------------------------- #
+def _assert_close_fast(jimg, img):
+    """The port's fast frame against the JAX package's fast frame from the
+    same state. Both quantize the pair table to the same values; they part
+    in the compositor's exponent (JAX: bf16 hi/lo halves, ~1e-3 absolute;
+    the port: f32), worth ~1e-3 of a weight and here and there a fragment
+    at the e >= -4 cutoff (<= exp(-4) * alpha ~ 0.018), and, with a proxy,
+    in an edge pixel of the triangle raster moving between triangles on one
+    ulp (tests/test_torch_trirast.py), which swaps ground for sky. So: mean
+    <= 3e-4, at most 0.3% of the values over 2/255."""
+    d = np.abs(img - jimg)
+    assert d.mean() <= 3e-4, d.mean()
+    assert (d > 2.0 / 255.0).mean() <= 0.003, (d > 2.0 / 255.0).mean()
+
+
+@pytest.mark.parametrize("case", ["flat", "heightmap"])
+def test_fast_full_config_frame_matches_jax(case):
+    """The default profile end to end: skybox + half-resolution proxy
+    through the pyramid sampler + quantized splats, the port computing from
+    the JAX fast Renderer's own arrays (hm_src included) against that
+    Renderer; the port's own configure binds the same source map."""
+    wang, ud, dt, camera, rc, sp = _frame(case)
+    sky, tex = _textures()
+    jr = JaxRenderer(wang, JaxConfig(width=W, height=H, max_draws=128,
+                                     max_stream=1 << 15, min_stream=1 << 12,
+                                     chunk=128))
+    assert jr.cfg.exact is False
+    jr.configure(ud)
+    jr.set_skybox(sky)
+    jr.set_proxy(tex)
+    jimg = np.asarray(jr.render(dt, camera, sp, rc, use_skybox=True,
+                                use_proxy=True))
+
+    cfg = RendererConfig(width=W, height=H, max_draws=128, max_stream=1 << 15,
+                         chunk=128)
+    assert cfg.exact is False and cfg.proxy_res_div == 0
+    fed = Renderer(wang, cfg, device="cpu")
+    fed.set_state(state_from_numpy(_jax_state(jr), "cpu"))
+    img = fed.render(dt, camera, sp, rc, use_skybox=True, use_proxy=True)
+    assert img.shape == (H, W, 4) and np.isfinite(img).all()
+    _assert_close_fast(jimg, img)
+    assert fed.last_aux["proxy_pairs"] == int(jr.last_aux["proxy_pairs"])
+    assert fed.last_aux["n_pairs"] == int(jr.last_aux["n_pairs"])
+    assert int(fed.last_aux["n_pairs_kept"]) == int(
+        jr.last_aux["n_pairs_kept"])
+
+    own = Renderer(wang, cfg, device="cpu")
+    own.configure(ud)
+    own.set_skybox(sky)
+    own.set_proxy(tex)
+    np.testing.assert_array_equal(own.hm_src.numpy(), np.asarray(jr.hm_src))
+    if case == "heightmap":
+        assert tuple(own.hm_src.shape) == (8, 8)
+    np.testing.assert_array_equal(
+        own.render(dt, camera, sp, rc, use_skybox=True, use_proxy=True), img)
+    # the exact profile binds no source map and renders another frame
+    ex = Renderer(wang, _config(), device="cpu")
+    ex.configure(ud)
+    assert ex.hm_src is None
+
+
+def test_engine_default_config_is_the_fast_profile():
+    """Engine passes a default RendererConfig through unchanged (fast
+    profile, both culls off), builds the pyramid in both profiles, and its
+    fast full-config frame equals the JAX Engine's within the fast budget."""
+    sky, tex = _textures()
+    kw = dict(tile_map_half_wh=(2, 2), height_map_scale=(1.0, 0.2),
+              height_map_wh=(4, 4), lod_max_dist=8.0,
+              surface_type=SurfaceType.HEIGHT_MAP)
+    teng = Engine(t_synth(n_lod=2, splats_per_tile=48), viewport=(96, 64),
+                  synchronous=True, device="cpu")
+    c = teng.renderer.cfg
+    assert (c.width, c.height) == (96, 64)
+    assert c.exact is False and not c.sat_cull and not c.depth_cull
+    jeng = JaxEngine(synthetic_scene_vec(n_lod=2, splats_per_tile=48),
+                     viewport=(96, 64), synchronous=True)
+    assert jeng.renderer.cfg.exact is False
+    for eng, mod in ((jeng, UserData), (teng, tcore.UserData)):
+        eng.set_skybox(sky, equirect=True)
+        eng.set_proxy(tex)
+        eng.configure(mod.from_ui(**kw))
+        assert eng.wait_ready(timeout_s=300)
+        eng.camera.set_view(np.array([1.0, -5.0, 3.0], np.float32),
+                            np.array([1.0, 2.0, 0.5], np.float32),
+                            np.array([0.0, 0.0, 1.0], np.float32))
+    assert teng.renderer.proxy_pyr is not None
+    assert teng.renderer.hm_src is not None
+    jimg, img = np.asarray(jeng.frame()), teng.frame()
+    _assert_close_fast(jimg, img)
+    teng.shutdown()
+    jeng.shutdown()
+    exact = Engine(t_synth(n_lod=2, splats_per_tile=48), viewport=(96, 64),
+                   renderer_config=RendererConfig(width=96, height=64,
+                                                  exact=True),
+                   synchronous=True, device="cpu")
+    exact.set_proxy(tex)
+    assert exact.renderer.proxy_pyr is not None
+    exact.shutdown()

@@ -29,6 +29,7 @@ from gswt_renderer_tpu.render.pipeline import Renderer as JaxRenderer
 from gswt_renderer_tpu.render.pipeline import RendererConfig as JaxConfig
 from gswt_renderer_tpu.render.uniforms import SceneParams
 from gswt_renderer_tpu.tiles import WangTileEngine
+from gswt_renderer_tpu_torch.ops import project as tproj
 from gswt_renderer_tpu_torch.render.pipeline import Renderer, RendererConfig
 
 W = H = 128
@@ -98,7 +99,8 @@ def test_assemble_and_project_matches_jax(wang, case):
             gs_enable=gs_en, interpret=True, exact=True)
 
     tr = Renderer(wang, RendererConfig(width=W, height=H, max_draws=256,
-                                       max_stream=1 << 15, chunk=128),
+                                       max_stream=1 << 15, chunk=128,
+                                       exact=True),
                   device="cpu")
     tr.configure(ud)
     tstaged = tr.stage(dt, camera, rc.culling_dist)
@@ -134,3 +136,55 @@ def test_assemble_and_project_matches_jax(wang, case):
     for i in range(4):
         np.testing.assert_allclose(*pair(jp["color"][i], tp["color"][i]),
                                    rtol=0, atol=1e-6, err_msg=f"color{i}")
+
+
+@pytest.mark.parametrize("branch", ["patch", "source_map"])
+def test_surface_mapping_fast_matches_jax(branch):
+    """surface_mapping(exact=False) on a height map, both branches: the
+    analytic gradient of the bilinear patch from the height tap's own four
+    texels, and height + gradient from the Catmull-Rom surface of the small
+    SOURCE map (the JAX package's _smallmap_resized_bilinear, which builds
+    one-hot weight columns and contracts them on the MXU; the port gathers
+    the same taps). Same numpy inputs through both. Tolerance: height within
+    2e-6 absolute (values of order 1), the frame's gradient entries within
+    2e-4 absolute: a gradient is a difference of neighbouring texels scaled
+    by the map's resolution (64 here), so the taps' f32 rounding (~1e-7) is
+    amplified by ~1e3, and the two sum their taps in different orders."""
+    from gswt_renderer_tpu.tiles.surface import map_resize
+
+    rng = np.random.default_rng(11)
+    sw, sh, reso = 10, 7, 64
+    src = rng.uniform(0.0, 1.0, (sh, sw)).astype(np.float32)
+    big = map_resize(src.reshape(-1), (sw, sh), (reso, reso))
+    hm4 = jproj.pack_tex4(big, reso, reso)
+    n = 5000
+    px = rng.uniform(-40.0, 40.0, n).astype(np.float32)
+    py = rng.uniform(-40.0, 40.0, n).astype(np.float32)
+    scene_np = dict(map_half_wh=np.array([4, 4], np.int32),
+                    tile_width=np.float32(4.0),
+                    height_map_scale=np.array([1.0, 1.0, 0.3], np.float32))
+    use_src = branch == "source_map"
+    zi = np.zeros(n, np.int32)
+    (jx, jy, jz), jfr = jproj.surface_mapping(
+        {k: jnp.asarray(v) for k, v in scene_np.items()}, jnp.asarray(hm4),
+        (reso, reso), jnp.asarray(px), jnp.asarray(py), jnp.asarray(zi),
+        jnp.asarray(zi), jnp.asarray(zi), jnp.asarray(zi), 1, exact=False,
+        hm_src=jnp.asarray(src) if use_src else jnp.zeros((1, 1)))
+    zt = torch.from_numpy(zi)
+    (tx, ty, tz), tfr = tproj.surface_mapping(
+        {k: torch.as_tensor(v) for k, v in scene_np.items()},
+        torch.from_numpy(hm4), (reso, reso), torch.from_numpy(px),
+        torch.from_numpy(py), zt, zt, zt, zt, 1, exact=False,
+        hm_src=torch.from_numpy(src) if use_src else torch.zeros((1, 1)))
+    assert np.asarray(jz).std() > 0.01, "the map should have relief"
+    np.testing.assert_allclose(tz.numpy(), np.asarray(jz), rtol=0, atol=2e-6)
+    for i, (a, b) in enumerate(zip(jfr, tfr)):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0,
+                                   atol=2e-4, err_msg=f"frame[{i}]")
+    # the fast gradient is a different function from the exact one
+    _, efr = tproj.surface_mapping(
+        {k: torch.as_tensor(v) for k, v in scene_np.items()},
+        torch.from_numpy(hm4), (reso, reso), torch.from_numpy(px),
+        torch.from_numpy(py), zt, zt, zt, zt, 1, exact=True)
+    assert float((efr[2] - tfr[2]).abs().max()) > 1e-4
+    assert float((efr[2] - tfr[2]).abs().mean()) < 0.05

@@ -1,10 +1,12 @@
 """The port's compositor against the JAX package's.
 
 The same binned tables (from JAX bin_pairs, or built by hand) go through
-JAX rasterize_pallas (interpret mode, exact profile, one and four worklist
-entries per grid step), the NumPy rasterize_reference and the port's
-rasterize (its plain version on the CPU). Tolerance: max abs 1e-4 per
-channel, the slack for FP32 summation order."""
+JAX rasterize_pallas (interpret mode, one and four worklist entries per grid
+step), the NumPy rasterize_reference and the port's rasterize (its plain
+version on the CPU). Exact profile: max abs 1e-4 per channel, the slack for
+FP32 summation order. Fast profile (exact=False): FAST_MAX / FAST_MEAN /
+FAST_FRAC below, with their reasons. The saturation-slot record (emit_zcut)
+is integers + 0.5 and must be EQUAL in all three."""
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +20,16 @@ from gswt_renderer_tpu_torch.ops import kernels
 from gswt_renderer_tpu_torch.ops import raster as tr
 
 TOL = 1e-4
+# Fast profile against the JAX fast kernel. Both round weights and colours to
+# bf16 before the f32 accumulate, but the JAX kernel forms the exponent from
+# bf16 hi/lo halves (~1e-3 absolute by its own comment, where the port
+# evaluates it in f32) and the weights as T_excl - T_incl: a fragment at the
+# e >= -4 cutoff may flip (worth up to exp(-4) * alpha ~ 0.018), a weight may
+# round to the neighbouring bf16 value (2^-8 of it), and every weight moves by
+# ~1e-3 of itself. All of it is inside tests/test_fastmode.py's 2/255.
+FAST_MAX = 0.02
+FAST_MEAN = 2e-4
+FAST_FRAC = 0.05  # share of values more than 1e-3 apart
 
 
 def _proj(n, seed, w, h):
@@ -141,14 +153,143 @@ def test_random_depth_masks_fragments():
 
 
 def test_cpu_path_counts_no_launch_and_rejects_emit_zcut():
+    """On CPU tensors every variant takes the plain version and counts no
+    launch. (emit_zcut was rejected until the fast profile was ported; it
+    now returns the record, [n_tiles, SAT_BANDS], beside unchanged tiles.)"""
     b = _port_binned(_saturating_table(128, 0, 0.05))
     depth = torch.ones((2, 64 * 32))
+    kw = dict(image_wh=(128, 32), tile_wh=(64, 32), chunk=128)
     before = kernels.LAUNCHES["raster"]
-    tr.rasterize(b, depth, image_wh=(128, 32), tile_wh=(64, 32), chunk=128)
+    base = tr.rasterize(b, depth, **kw)
+    tiles, zcut = tr.rasterize(b, depth, emit_zcut=True, **kw)
+    tr.rasterize(b, depth, exact=False, **kw)
     assert kernels.LAUNCHES["raster"] == before
-    with pytest.raises(NotImplementedError):
-        tr.rasterize(b, depth, image_wh=(128, 32), tile_wh=(64, 32),
-                     chunk=128, emit_zcut=True)
+    assert torch.equal(tiles, base)
+    assert tuple(zcut.shape) == (2, tr.SAT_BANDS)
+    assert tr.SAT_NOCUT == jr.SAT_NOCUT and tr.SAT_BANDS == jr.SAT_BANDS
+
+
+def _proj_opaque(n, seed):
+    """tests/test_sat_cull.py's opaque scene (numpy): a mix of big stackers
+    and small splats with alpha 0.85-0.99, so tiles saturate early."""
+    rng = np.random.default_rng(seed)
+    cx = rng.uniform(0, 256, n).astype(np.float32)
+    cy = rng.uniform(0, 128, n).astype(np.float32)
+    big = rng.random(n) < 0.5
+    ex = np.where(big, rng.uniform(40, 90, n),
+                  rng.uniform(3, 12, n)).astype(np.float32)
+    ey = np.where(big, rng.uniform(25, 60, n),
+                  rng.uniform(3, 12, n)).astype(np.float32)
+    qa = np.where(big, rng.uniform(0.001, 0.01, n),
+                  rng.uniform(0.05, 0.4, n)).astype(np.float32)
+    qc = np.where(big, rng.uniform(0.001, 0.01, n),
+                  rng.uniform(0.05, 0.4, n)).astype(np.float32)
+    qb = (0.3 * np.sqrt(qa * qc)).astype(np.float32)
+    z = np.sort(rng.uniform(0.1, 0.9, n)).astype(np.float32)
+    col = [rng.random(n).astype(np.float32) for _ in range(3)]
+    col.append(rng.uniform(0.85, 0.99, n).astype(np.float32))
+    return dict(cx=cx, cy=cy, ext_x=ex, ext_y=ey, q=(qa, qb, qc), z=z,
+                color=tuple(col), valid=np.ones(n, bool))
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("seed", [2, 3])
+def test_zcut_equals_jax_kernel_and_reference(seed, exact):
+    """emit_zcut on the opaque scene: the port's record equals the Pallas
+    kernels' (per-entry and blocked, interpret mode) and the NumPy
+    reference's, entry for entry, in both profiles; emitting it leaves the
+    colour output unchanged."""
+    image_wh, tile_wh, chunk = (256, 128), (64, 32), 128
+    b = jbin.bin_pairs(_jax_tree(_proj_opaque(1024, seed)), image_wh=image_wh,
+                       tile_wh=tile_wh, max_pairs=8192, chunk=chunk,
+                       exact=exact, elem_paths=2)
+    depth = np.ones((16, 64 * 32), np.float32)
+    kw = dict(image_wh=image_wh, tile_wh=tile_wh, chunk=chunk)
+    pb = _port_binned(b)
+    base = tr.rasterize(pb, torch.from_numpy(depth), use_depth=False,
+                        exact=exact, **kw)
+    tiles, zcut = tr.rasterize(pb, torch.from_numpy(depth), use_depth=False,
+                               exact=exact, emit_zcut=True, **kw)
+    assert torch.equal(tiles, base)
+    zc = zcut.numpy()
+    assert zc.shape == (16, tr.SAT_BANDS)
+    assert (zc < tr.SAT_NOCUT).sum() >= 4, "the scene must saturate bands"
+    assert ((zc == tr.SAT_NOCUT) | ((zc > 0.0) & (zc < 2 ** 24))).all()
+    for step in (1, 4):
+        jcol, jz = jr.rasterize_pallas(
+            b, jnp.asarray(depth), interpret=True, exact=exact,
+            use_depth=False, emit_zcut=True, step=step, **kw)
+        np.testing.assert_array_equal(zc, np.asarray(jz))
+        d = np.abs(tiles.numpy() - np.asarray(jcol))
+        if exact:
+            assert d.max() <= TOL
+        else:
+            assert d.max() <= FAST_MAX and d.mean() <= FAST_MEAN
+    bn = {k: np.asarray(v) for k, v in b.items() if k != "grid_info"}
+    _, rz = jr.rasterize_reference(bn, depth, emit_zcut=True, **kw)
+    np.testing.assert_array_equal(zc, rz)
+
+
+@pytest.mark.parametrize("use_depth", [False, True])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fast_plain_matches_jax_fast_kernel(seed, use_depth):
+    """rasterize(exact=False) against rasterize_pallas(exact=False) on the
+    fast profile's own pair table, within FAST_MAX / FAST_MEAN / FAST_FRAC;
+    and the fast variant stays within one bf16 step (2^-8) per channel of
+    the port's exact variant on the same table."""
+    image_wh, tile_wh, chunk = (256, 128), (64, 32), 128
+    b = jbin.bin_pairs(_jax_tree(_proj(1500, seed, *image_wh)),
+                       image_wh=image_wh, tile_wh=tile_wh, max_pairs=1 << 14,
+                       chunk=chunk, exact=False, cull_exact=True)
+    rng = np.random.default_rng(1)
+    depth = (rng.uniform(0.2, 1.0, (16, 64 * 32)).astype(np.float32)
+             if use_depth else np.ones((16, 64 * 32), np.float32))
+    kw = dict(image_wh=image_wh, tile_wh=tile_wh, chunk=chunk,
+              use_depth=use_depth)
+    got = tr.rasterize(_port_binned(b), torch.from_numpy(depth), exact=False,
+                       **kw).numpy()
+    assert got[:, 3].max() > 0.5
+    for step in (1, 4):
+        want = np.asarray(jr.rasterize_pallas(
+            b, jnp.asarray(depth), interpret=True, exact=False, step=step,
+            **kw))
+        d = np.abs(got - want)
+        assert d.max() <= FAST_MAX, d.max()
+        assert d.mean() <= FAST_MEAN, d.mean()
+        assert (d > 1e-3).mean() <= FAST_FRAC, (d > 1e-3).mean()
+    exact = tr.rasterize(_port_binned(b), torch.from_numpy(depth), **kw).numpy()
+    assert 1e-5 < np.abs(got - exact).max() <= 2.0 ** -8
+
+
+def test_fast_variant_rounds_weight_and_colour_to_bf16():
+    """One opaque-ish pair covering a tile at exponent 0: the fast variant's
+    colour is bf16(c) * bf16(alpha) and its alpha bf16(alpha), exactly; the
+    exact variant's is c * alpha."""
+    table = np.zeros((16, 128), np.float32)
+    table[5] = -1e30
+    table[11] = -np.inf
+    rgb = np.array([0.3, 100 / 255, 0.77], np.float32)
+    alpha = np.float32(0.7)
+    table[5, 0] = 0.0
+    table[8:11, 0] = rgb
+    table[11, 0] = np.log(alpha)
+    b = dict(table=torch.from_numpy(table),
+             range_start=torch.tensor([0], dtype=torch.int32),
+             range_end=torch.tensor([1], dtype=torch.int32))
+    kw = dict(image_wh=(64, 32), tile_wh=(64, 32), chunk=128, use_depth=False)
+    g = torch.exp(torch.tensor(np.log(alpha)))
+
+    def bf16(x):
+        return torch.as_tensor(x).to(torch.bfloat16).to(torch.float32)
+
+    fast = tr.rasterize(b, torch.ones((1, 2048)), exact=False, **kw)
+    want = torch.cat([bf16(rgb) * bf16(g), bf16(g)[None]])
+    assert torch.equal(fast[0, :, 0], want)
+    assert torch.equal(fast[0], want[:, None].expand(4, 2048))
+    exact = tr.rasterize(b, torch.ones((1, 2048)), **kw)
+    np.testing.assert_allclose(exact[0, :, 0].numpy(),
+                               np.append(rgb * float(g), float(g)), rtol=1e-6)
+    assert not torch.equal(fast, exact)
 
 
 @pytest.mark.parametrize("wh", [(256, 128), (200, 90)])

@@ -52,8 +52,10 @@ def test_pixel_rays_match_jax(name):
 @pytest.mark.parametrize("shape", [(16, 32), (180, 513)],
                          ids=["kernel_path", "gather_path"])
 def test_render_skybox_equirect_matches_jax(name, shape):
-    """(16, 32) is a small texture (factored_fits: the bilinear kernel's
-    path); (180, 513) is over the limit and takes the 4-tap gather."""
+    """(16, 32) is a small texture (factored_fits: the JAX package's
+    bilinear kernel path); (180, 513) is over that limit, where the JAX
+    package takes a 4-tap gather. The port sends both through its bilinear
+    sampler, whose association differs from the gather's in the last ulp."""
     rng = np.random.default_rng(0)
     tex = rng.uniform(0.0, 4.0, shape + (3,)).astype(np.float32)
     assert factored_fits((3,) + shape) == (shape == (16, 32))
