@@ -5,8 +5,9 @@
 
 Phases, each printing its own line; any failure raises (non-zero exit):
 1. device: the card's name and power limit (nvidia-smi);
-2. build: every CUDA kernel of the main paths from csrc/ (five sources, the
-   compositor in four compile-time variants), one nvcc each, all at once;
+2. build: every CUDA kernel of the main paths from csrc/ (eight sources, the
+   compositor in four compile-time variants, the micro-raster in twelve), one
+   nvcc each, all at once;
 3. reference: small frames rendered on the card against the port's CPU
    path (the plain PyTorch versions the CPU tests hold against the JAX
    package): gs-only and with skybox + proxy, in the exact profile within
@@ -31,7 +32,15 @@ Phases, each printing its own line; any failure raises (non-zero exit):
    (the fast profile, both culls off: the frame bench.py times); 6 frames
    of the same Engine with sat_cull on at a fixed camera beside 6 without;
 6. profile: where the frame's time goes, per stage and kernel, in the exact
-   and in the fast profile.
+   and in the fast profile;
+7. the benchmarks sub-package: its kernels against their plain versions at
+   the micro-benchmarks' own shapes (sorted merge: keys equal to numpy's
+   merge, payload rows and the sentinel tail bit-equal; micro-raster A, B, C,
+   C2, D at 1 << 22 pairs on 1080p: <= 1e-4 per channel each; both micro
+   block gathers bit-equal), then the three micro-benchmark scripts and the
+   headline fly-through (1920x1080, 512 splats, 3 LODs, fast profile, 2
+   repeats of the first 15 s leg through Engine.run_benchmark) through their
+   main(), each in a launch-count window of its own.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Needs a CUDA device and the repository's
@@ -79,12 +88,6 @@ SAMPLER_TOL = 1e-6
 # the triangle raster's attributes, relative: a tie's sum may be taken in
 # another order
 TRIRAST_ATTR_RTOL = 1e-5
-BENCH_KEYFRAMES = [  # bench.py fly path
-    (0.0, (0.0, 0.0, 5.0), (0.0, 30.0, 2.0)),
-    (5.0, (6.0, 18.0, 5.0), (10.0, 48.0, 2.0)),
-    (10.0, (2.0, 40.0, 6.0), (-20.0, 60.0, 1.0)),
-    (15.0, (-10.0, 55.0, 5.0), (-30.0, 80.0, 2.0)),
-]
 N_FRAMES = 24      # the main path: fast-profile full-config frames
 N_FRAMES_EXACT = 8  # exact-profile full-config frames (slice 2's path, cut)
 N_FRAMES_GS = 4    # exact-profile gs-only frames (slice 1's path, cut)
@@ -106,18 +109,6 @@ def _time_ms(torch, fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def bench_textures(sky_hw=(64, 128), cells=64, cell=8):
-    """bench.py's skybox (a vertical HDR ramp, equirect) and proxy texture
-    (a checker of `cells` x `cells` cells of `cell` texels)."""
-    sky = np.clip(
-        np.linspace(0, 4, sky_hw[0])[:, None, None]
-        * np.ones(sky_hw + (3,), np.float32), 0, 4)
-    c = np.kron(np.indices((cells, cells)).sum(0) % 2,
-                np.ones((cell, cell))).astype(np.float32)
-    return sky, np.stack([c * 0.8 + 0.1, c * 0.5 + 0.2, c * 0.3 + 0.1],
-                         axis=-1)
-
-
 def phase_reference(torch):
     """Small frames on the card against the port's CPU path, in both
     profiles. Budget: tests/test_pipeline.py's (mean < 1e-4 and at most 5e-4
@@ -129,6 +120,7 @@ def phase_reference(torch):
     from gswt_renderer_tpu_torch.io.synth import synthetic_scene_vec
     from gswt_renderer_tpu_torch.render.pipeline import Renderer, RendererConfig
     from gswt_renderer_tpu_torch.render.uniforms import SceneParams
+    from gswt_renderer_tpu_torch.benchmarks.headline import bench_textures
     from gswt_renderer_tpu_torch.tiles import WangTileEngine
 
     w = h = 128
@@ -274,8 +266,8 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(1)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from gswt_renderer_tpu_torch.core import UserData
-    from gswt_renderer_tpu_torch.core.config import SurfaceType
+    from gswt_renderer_tpu_torch.benchmarks import (
+        headline, mergesorted, micro_blockgather, micro_merge, micro_raster)
     from gswt_renderer_tpu_torch.engine import Engine, FlyPathControl, FlyPathFrame
     from gswt_renderer_tpu_torch.io.synth import synthetic_scene_vec
     from gswt_renderer_tpu_torch.ops import (
@@ -312,9 +304,9 @@ def main():
     image_wh = (width, height)
     n_px = width * height
     sv = synthetic_scene_vec(n_lod=3, splats_per_tile=512, lod_decay=2, seed=0)
-    sky, checker = bench_textures()
+    sky, checker = headline.bench_textures()
     fp = FlyPathControl()
-    for t, p, tgt in BENCH_KEYFRAMES:
+    for t, p, tgt in headline.KEYFRAMES:
         fp.keyframes.append(FlyPathFrame(
             t, np.array(p, np.float32), np.array(tgt, np.float32)))
 
@@ -330,13 +322,7 @@ def main():
         eng = Engine(sv, viewport=image_wh, renderer_config=config,
                      synchronous=False, device="cuda")
         first_camera(eng)
-        eng.configure(UserData.from_ui(
-            tile_map_half_wh=(48, 48), tile_width=4.0,
-            surface_type=SurfaceType.HEIGHT_MAP, height_map_wh=(10, 10),
-            height_map_scale=(1.0, 0.3), lod_max_dist=96.0,
-            lod_transition_width_ratio=0.05, merge_dot_threshold=0.2,
-            merge_topk=100, cache_size=1024,
-        ))
+        eng.configure(headline.bench_user_data())
         if not eng.wait_ready(timeout_s=300):
             raise RuntimeError("engine produced no frame")
         torch.cuda.synchronize()
@@ -822,10 +808,269 @@ def main():
     phase_profile(torch, eng, fp, "fast")
     eng.shutdown()
 
+    # ------------------------------------------------------------------ #
+    # 7. the benchmarks sub-package: the parked merge and the micro-bench
+    # kernels against their plain versions at the scripts' own shapes, then
+    # the scripts themselves and the headline fly-through through main()
+    # ------------------------------------------------------------------ #
+    csrc = "gswt_renderer_tpu_torch/csrc/"
+
+    def once_ms(fn):
+        """(result, device ms) of one call, no warm-up: for the plain
+        versions that take seconds."""
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        b.synchronize()
+        return out, a.elapsed_time(b)
+
+    def same_words(x, y):
+        return bool(torch.equal(x.view(torch.int32), y.view(torch.int32)))
+
+    # 7a. sorted merge at micro_merge's shape: 5 tables of 1 << 22 lanes in
+    # all, int32 key + 6 payload rows, block 2048
+    mm_n, mm_k, mm_rows, mm_block = 1 << 22, 5, 7, 2048
+    tabs_np, keys_np = micro_merge.make_tables(mm_n, mm_k, mm_rows)
+    tabs = [torch.from_numpy(t).cuda() for t in tabs_np]
+    want_keys = torch.from_numpy(np.sort(keys_np)).cuda()
+
+    def merge_check(label, tables):
+        """The merge of `tables` against its plain version and numpy."""
+        n_in = sum(t.shape[1] for t in tables)
+        got = mergesorted.merge_sorted(tables, block=mm_block)
+        plain, plain_ms = once_ms(lambda: mergesorted.merge_sorted_plain(
+            tables, block=mm_block))
+        torch.cuda.synchronize()
+        real = got[0].view(torch.int32) != mergesorted.SENTINEL
+        ordered = torch.sort(torch.cat(
+            [t[0].view(torch.int32) for t in tables]))[0]
+        keys_ok = (int(real.sum()) == n_in and bool(real[:n_in].all())
+                   and bool(torch.equal(got[0, :n_in].view(torch.int32),
+                                        ordered)))
+        tail = got[:, n_in:].view(torch.int32)
+        tail_ok = (bool((tail[0] == mergesorted.SENTINEL).all())
+                   and not bool(tail[1:].any()))
+        rows_ok = same_words(got, plain)
+        print(f"[kernel] {label}: {n_in} lanes -> {got.shape[1]} columns x "
+              f"{got.shape[0]} rows, keys equal to the sorted keys {keys_ok}, "
+              f"rows bit-equal to the plain version {rows_ok}, sentinel tail "
+              f"of {got.shape[1] - n_in} columns {tail_ok}")
+        if not (keys_ok and rows_ok and tail_ok):
+            raise RuntimeError(f"{label}: the kernel disagrees with its "
+                               f"plain version")
+        return got, plain_ms
+
+    def merge_bytes(widths):
+        """Bytes the tournament must move: every pair merge reads both
+        tables once and writes its block-rounded output once."""
+        widths, total = sorted(widths), 0
+        while len(widths) > 1:
+            na, nb = widths.pop(0), widths.pop(0)
+            no = -(-(na + nb) // mm_block) * mm_block
+            total += 4 * mm_rows * (na + nb + no)
+            widths = sorted(widths + [no])
+        return total
+
+    pair = tabs[:2]
+    merge_check("merge_sorted_pair", pair)
+    pair_flat = torch.cat(pair, dim=1)
+    pair_ms = _time_ms(torch, lambda: mergesorted.merge_sorted_pair(
+        *pair, block=mm_block), 20)
+    pair_lib = _time_ms(
+        torch, lambda: micro_merge.sort_and_gather(pair_flat), 20)
+    pair_bound = merge_bytes([t.shape[1] for t in pair]) / HBM_BYTES_PER_S * 1e3
+    print(f"[kernel] merge_sorted_pair {pair[0].shape[1]} + "
+          f"{pair[1].shape[1]} lanes: {pair_ms:.4f} ms (torch.sort + gather "
+          f"{pair_lib:.4f}, bound {pair_bound:.4f})")
+    merged, mm_plain_ms = merge_check(f"merge_sorted k={mm_k}", tabs)
+    if not torch.equal(merged[0, :mm_n].view(torch.int32), want_keys):
+        raise RuntimeError("merge_sorted: keys are not numpy's merge")
+    del merged, pair_flat
+
+    # 7b. micro-raster variants at 1 << 22 pairs, 1080p, 64x32, chunk 256.
+    # Tolerance 1e-4 per channel in every variant: the plain version walks
+    # a chunk's pairs in the kernel's order and rounds the exponent's
+    # operations (and its bf16 hi/lo parts) as the kernel does, so T, the
+    # cutoff and the bf16 rounding of the weights decide alike; what is left
+    # is the f32 order of the colour sums. It is taken relative to the
+    # largest magnitude in the tile where that exceeds 1: variant D's
+    # exponent, from operands rounded to bf16 once, comes out positive for
+    # some pairs, g exceeds 1, T changes sign and a pixel's sums are signed
+    # terms of up to 1e6 that partly cancel (D is the script's accuracy
+    # reference, not a usable compositor)
+    mr_pairs, mr_chunk = 1 << 22, 256
+    mr_binned = micro_raster.make_binned(mr_pairs, image_wh, tile_wh,
+                                         device="cuda")
+    mr_ops = {"highest": 10, "split2": 31, "default": 10}
+    mr_out, mr_info = {}, {}
+    for name, (local, prec, bf2, text) in micro_raster.VARIANTS.items():
+        b_v, kw_v = micro_raster.variant_inputs(
+            mr_binned, name, image_wh=image_wh, tile_wh=tile_wh)
+        kw_v.update(image_wh=image_wh, tile_wh=tile_wh, chunk=mr_chunk)
+        k_out = micro_raster.composite(b_v, ones, **kw_v)
+        st = {}
+        p_out, plain_ms = once_ms(lambda: micro_raster.composite_plain(
+            b_v, ones, stats=st, **kw_v))
+        scale = p_out.abs().amax(dim=(1, 2), keepdim=True).clamp(min=1.0)
+        e = float(((k_out - p_out).abs() / scale).amax())
+        mr_out[name] = k_out
+        err_a = float((k_out - mr_out["A"]).abs().amax())
+        # operations per composited pair-pixel (csrc/micro_raster.cu): the
+        # exponent, 13 for the rest, 2 for the bf16 rounding
+        ops = mr_ops[prec] + 13 + (2 if bf2 else 0)
+        pp = st["pairs"] * p_n
+        mr_info[name] = dict(
+            err=e, plain_ms=plain_ms, pairs=st["pairs"],
+            bound_ms=max(pp * ops / FP32_OPS_PER_S, pp / SFU_OPS_PER_S) * 1e3)
+        print(f"[kernel] micro_raster {name} ({text}): max diff {e:.3e} "
+              f"against its plain version, {err_a:.3e} against A, alpha "
+              f"{float(k_out[:, 3].mean()):.4f}, {st['pairs']} of "
+              f"{int((mr_binned['key'] < n_tiles).sum())} pairs composited")
+        if not (e <= RASTER_TOL and torch.isfinite(k_out).all()):
+            raise RuntimeError(f"micro_raster {name}: the kernel disagrees "
+                               f"with its plain version")
+    del mr_out, mr_binned, b_v, k_out, p_out
+
+    # 7c. micro block gathers at the script's shape: [11, 4M] strided and
+    # [16384, 16, 256] block-contiguous, 12288 blocks
+    bg_np, bg_nb = 4 << 20, 12 << 10
+    table_s, table_bc, src_g = micro_blockgather.make_inputs(
+        bg_np, bg_nb, "cuda")
+    g_checks = {
+        "strided": (lambda: micro_blockgather.gather_strided(table_s, src_g),
+                    lambda: micro_blockgather.gather_strided_plain(
+                        table_s, src_g)),
+        "contig g8": (lambda: micro_blockgather.gather_contig(
+            table_bc, src_g, group=8),
+            lambda: micro_blockgather.gather_contig_plain(table_bc, src_g)),
+        "contig g1": (lambda: micro_blockgather.gather_contig(
+            table_bc, src_g, group=1),
+            lambda: micro_blockgather.gather_contig_plain(table_bc, src_g)),
+    }
+    g_plain_ms = {}
+    for label, (k_fn, p_fn) in g_checks.items():
+        if not same_words(k_fn(), p_fn()):
+            raise RuntimeError(f"micro_blockgather {label}: the kernel "
+                               f"disagrees with its plain version")
+        g_plain_ms[label] = _time_ms(torch, p_fn, 10)
+        print(f"[kernel] micro_blockgather {label}: bit-exact")
+    del table_s, table_bc
+
+    # 7d. the bench entry's path, through the entry points a user calls, one
+    # launch window per script: the three micro-benchmarks at their default
+    # (full) shapes, then the headline fly-through
+    kernels.LAUNCHES.clear()
+    mm_res = micro_merge.main([])
+    launches_mm = dict(kernels.LAUNCHES)
+    need(launches_mm, ("merge_sorted_pair", "merge_path_splits"), mm_k - 1,
+         "micro_merge tournament")
+    if mm_res["mismatched"]:
+        raise RuntimeError("micro_merge: merged keys differ from numpy's")
+    kernels.LAUNCHES.clear()
+    mr_res = micro_raster.main([])
+    launches_mr = dict(kernels.LAUNCHES)
+    need(launches_mr, ("micro_raster",), len(micro_raster.VARIANTS),
+         "micro_raster variant")
+    kernels.LAUNCHES.clear()
+    bg_res = micro_blockgather.main([])
+    launches_bg = dict(kernels.LAUNCHES)
+    need(launches_bg, ("micro_blockgather_strided",), 1, "micro_blockgather")
+    need(launches_bg, ("micro_blockgather_contig",), 2, "micro_blockgather")
+    print(f"[micro] launches: micro_merge {launches_mm}, micro_raster "
+          f"{launches_mr}, micro_blockgather {launches_bg}")
+
+    mm_bound = merge_bytes([t.shape[1] for t in tabs]) / HBM_BYTES_PER_S * 1e3
+    print(f"[kernel] merge_sorted k={mm_k} tournament ({mm_k - 1} pair "
+          f"merges): {mm_res['merge_ms']:.4f} ms (plain "
+          f"{mm_plain_ms:.3f}, torch.sort + gather {mm_res['sort_ms']:.4f}, "
+          f"bound {mm_bound:.4f})")
+    # one entry for the merge kernel: a whole k=5 tournament (4 launches of
+    # the merge kernel and 4 of the split kernel), what micro_merge times
+    new_entries = [dict(
+        name="merge_sorted_pair", route="cuda", source=csrc + "mergesorted.cu",
+        replaces="benchmarks/mergesorted.py:227",
+        launches=launches_mm["merge_sorted_pair"], max_abs_err=0.0,
+        ms=mm_res["merge_ms"], plain_ms=mm_plain_ms, bound_ms=mm_bound,
+        bound_by="bytes", library_ms=mm_res["sort_ms"])]
+    for name, info in mr_info.items():
+        new_entries.append(dict(
+            name=f"micro_raster_{name}", route="cuda",
+            source=csrc + "micro_raster.cu",
+            replaces="benchmarks/micro_raster.py:189",
+            launches=launches_mr["micro_raster"] // len(micro_raster.VARIANTS),
+            max_abs_err=info["err"], ms=mr_res[name]["ms"],
+            plain_ms=info["plain_ms"], bound_ms=info["bound_ms"],
+            bound_by="operations",
+            library_ms=None))  # no stock call composites a sorted pair table
+        print(f"[kernel] micro_raster {name} {info['pairs']} pairs x {p_n} "
+              f"px: {mr_res[name]['ms']:.3f} ms (plain "
+              f"{info['plain_ms']:.1f}, bound {info['bound_ms']:.3f}), max "
+              f"|err| against A {mr_res[name]['err_vs_a']:.3e}")
+    # label -> (table rows, the script's kernel line, its library line, the
+    # entry's name and the TPU call site it replaces; group 1 is the same
+    # kernel as group 8 and is listed once)
+    gathers = {
+        "strided": (micro_blockgather.K, "kernel strided",
+                    "slice gather (index_select)",
+                    "micro_blockgather_strided", "80"),
+        "contig g8": (micro_blockgather.K16, "kernel blk-contig g8",
+                      "row gather (16 KiB rows)",
+                      "micro_blockgather_contig", "115"),
+        "contig g1": (micro_blockgather.K16, "kernel blk-contig g1",
+                      "row gather (16 KiB rows)", None, None),
+    }
+    for label, (rows, k_line, lib_line, entry, site) in gathers.items():
+        # bytes: the gathered blocks read once and written once, and the ids
+        n_bytes = 2 * 4 * rows * bg_nb * micro_blockgather.B + 4 * bg_nb
+        bound = n_bytes / HBM_BYTES_PER_S * 1e3
+        print(f"[kernel] micro_blockgather {label}: {bg_res[k_line]:.4f} ms "
+              f"({n_bytes / bg_res[k_line] / 1e6:.1f} GB/s; plain "
+              f"{g_plain_ms[label]:.4f}, library {bg_res[lib_line]:.4f}, "
+              f"bound {bound:.4f})")
+        if entry is not None:
+            new_entries.append(dict(
+                name=entry, route="cuda",
+                source=csrc + "micro_blockgather.cu",
+                replaces="benchmarks/micro_blockgather.py:" + site,
+                launches=launches_bg[entry], max_abs_err=0.0,
+                ms=bg_res[k_line], plain_ms=g_plain_ms[label],
+                bound_ms=bound, bound_by="bytes",
+                library_ms=bg_res[lib_line]))
+
+    # the headline: 2 repeats of the first 15 s leg at full width
+    kernels.LAUNCHES.clear()
+    head = headline.main(["--seconds", "15", "--repeats", "2",
+                          "--dense-splats", "0"])
+    launches_head = dict(kernels.LAUNCHES)
+    hm = head["meta"]
+    bench_frames = sum(hm["frames"])
+    if not (bench_frames > 0 and min(hm["frames"]) > 0 and head["value"] > 0):
+        raise RuntimeError("[bench] the headline timed no frame")
+    need(launches_head, per_frame, bench_frames, "headline")
+    for name in per_frame:
+        if hm["launches_per_frame"].get(name) != 1.0:
+            raise RuntimeError(
+                f"[bench] {name} launched "
+                f"{hm['launches_per_frame'].get(name)} times per timed frame")
+    if hm["alpha_off_share"] > 0.02:
+        raise RuntimeError(f"[bench] alpha is not 1 over an opaque sky on "
+                           f"{hm['alpha_off_share']:.2e} of the pixels")
+    print(f"[bench] headline, first 15 s leg x 2 at {width}x{height}: medians "
+          f"{[round(m, 2) for m in hm['median_frame_ms']]} ms, spread "
+          f"{hm['spread']['min']:.2f}-{hm['spread']['max']:.2f}, "
+          f"{head['value']:.2f} fps, frames {hm['frames']}, "
+          f"{hm['n_pairs']} pairs, sort {hm['sort_ms']:.2f} ms, build "
+          f"{hm['build_ms']:.2f} ms, builder load {hm['builder_load']:.3f}, "
+          f"interactive latency {hm['interactive_latency_ms']:.2f} ms, "
+          f"launches {launches_head}")
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: d[k] for k in keys}
-                                  for d in (bg, rs, rf, rz, tr, bl, mp)]}))
+                                  for d in [bg, rs, rf, rz, tr, bl, mp]
+                                  + new_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -363,6 +363,106 @@ class Engine:
         return False
 
     # ------------------------------------------------------------------ #
+    def run_benchmark(self, fly_path: FlyPathControl, readback: bool = False,
+                      max_frames: int = 100000):
+        """Fly-path benchmark (gui.rs:955-997): clears all MAs, replays the
+        path in real time, returns mean/std of frame/sort/build time, the
+        trigger rates and the windowed frame-time statistics."""
+        for ma in (
+            self.frame_time_ma, self.sort_time_ma, self.build_time_ma,
+            self.sort_trigger_ma, self.build_trigger_ma,
+        ):
+            ma.clear()
+        self.fly_path = fly_path
+        self.camera_control = "flypath"
+        fly_path.reset_path()
+        fly_path.start_path()
+        frames = 0
+        stamps = [get_time_milliseconds()]
+        t0 = stamps[0]
+        while not fly_path.finished and frames < max_frames:
+            self.frame(readback=readback)
+            stamps.append(get_time_milliseconds())
+            frames += 1
+        # the wall clock stops only once the device has finished every
+        # frame: without readback a frame returns when it is enqueued
+        self.renderer.drain()
+        wall = get_time_milliseconds() - t0
+        self.camera_control = "keyboard"
+        f_avg, f_std = self.frame_time_ma.calc()
+        s_avg, s_std = self.sort_time_ma.calc()
+        b_avg, b_std = self.build_time_ma.calc()
+        # median over 16-frame windows: a single frame's stamp says when it
+        # was enqueued, a window's span is throughput
+        win = 16
+        wins = [
+            (stamps[i + win] - stamps[i]) / win
+            for i in range(0, len(stamps) - win, win)
+        ]
+        swins = sorted(wins)
+        median_ms = swins[len(swins) // 2] if swins else (
+            wall / frames if frames else 0.0
+        )
+        # windows over 3x the median are stalls of the host, not of the
+        # renderer; they are left out of the clean mean and their count is
+        # reported, so a run that stalls dominate is visibly suspect
+        kept = [w for w in wins if w <= 3.0 * median_ms] or wins
+        stall_windows = len(wins) - len(kept)
+        clean_ms = float(np.mean(kept)) if kept else median_ms
+        sort_trigger = self.sort_trigger_ma.calc()[0]
+        build_trigger = self.build_trigger_ma.calc()[0]
+        return dict(
+            frames=frames,
+            wall_ms=wall,
+            fps=frames / (wall / 1000.0) if wall > 0 else 0.0,
+            median_frame_ms=median_ms,
+            clean_frame_ms=clean_ms,
+            n_windows=len(wins),
+            stall_windows=stall_windows,
+            frame_ms=(f_avg, f_std),
+            sort_ms=(s_avg, s_std),
+            build_ms=(b_avg, b_std),
+            sort_trigger=sort_trigger,
+            build_trigger=build_trigger,
+            # the share of the frame budget the builder thread's work would
+            # take if it were serialized: < 1 means sorting fully overlaps
+            builder_load=(
+                (s_avg * sort_trigger + b_avg * build_trigger) / median_ms
+                if median_ms > 0 else 0.0
+            ),
+        )
+
+    def hud_text(self) -> str:
+        """Terminal HUD: the reference's Render/Perf window counters
+        (gui.rs:424-453, 790-828) as one line."""
+        f_avg, f_std = self.frame_time_ma.calc()
+        s_avg, _ = self.sort_time_ma.calc()
+        b_avg, _ = self.build_time_ma.calc()
+        fps = 1000.0 / f_avg if f_avg > 0 else 0.0
+        splats = self.cur_scene.splat_count if self.cur_scene else 0
+        per_lod = (
+            "/".join(str(c) for c in self.cur_scene.lod_instance_count)
+            if self.cur_scene
+            else "-"
+        )
+        return (
+            f"fps {fps:6.2f} | frame {f_avg:7.1f}±{f_std:5.1f} ms | "
+            f"sort {s_avg:6.1f} ms ({self.sort_trigger_ma.calc()[0] * 100:3.0f}%) | "
+            f"build {b_avg:6.1f} ms ({self.build_trigger_ma.calc()[0] * 100:3.0f}%) | "
+            f"splats {splats:,} | tiles/lod {per_lod}"
+        )
+
+    @staticmethod
+    def format_benchmark(r) -> str:
+        """LaTeX-style dump like the reference (gui.rs:980-997)."""
+        return (
+            "Render & Sort & Update\\\\\n"
+            f"${r['frame_ms'][0]:.2f} \\pm {r['frame_ms'][1]:.2f}$ & "
+            f"${r['sort_ms'][0]:.2f} \\pm {r['sort_ms'][1]:.2f}$ & "
+            f"${r['build_ms'][0]:.2f} \\pm {r['build_ms'][1]:.2f}$"
+        )
+
+    # ------------------------------------------------------------------ #
     def save_checkpoint(self, path):
         """Full session checkpoint: UserData + camera + RNG state."""
         state = dict(

@@ -1,9 +1,9 @@
 """Building, loading and counting the hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` holds one kernel behind a plain C interface. It is
-compiled with nvcc for sm_90a into ``build/lib<name>.so`` at first use (or by
-``build_all``, which starts one nvcc per source at once) and loaded with
-ctypes. The C entry returns ``cudaGetLastError()``; ``check`` raises if it is
+Each ``csrc/<name>.cu`` holds one module's kernels behind a plain C
+interface. It is compiled with nvcc for sm_90a into ``build/lib<name>.so`` at
+first use (or by ``build_all``, which starts one nvcc per source at once) and
+loaded with ctypes. A C entry returns ``cudaGetLastError()``; ``check`` raises if it is
 not 0, since a refused launch never runs and a later synchronize would not
 report it.
 
@@ -26,7 +26,8 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-KERNELS = ("blockgather", "raster", "trirast", "bilinear", "miptrilinear")
+KERNELS = ("blockgather", "raster", "trirast", "bilinear", "miptrilinear",
+           "mergesorted", "micro_raster", "micro_blockgather")
 
 LAUNCHES: collections.Counter = collections.Counter()
 

@@ -873,6 +873,12 @@ class Renderer:
         return torch.full(shape, SAT_NOCUT, dtype=torch.float32,
                           device=self.device)
 
+    def drain(self):
+        """Block until the device has finished every frame enqueued so far
+        (a frame rendered without readback returns before it is done)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def render(self, dt: DrawTable, camera: Camera, scene: SceneParams,
                render_config: RenderConfig | None = None, *,
                render_gs: bool = True, use_skybox: bool = False,

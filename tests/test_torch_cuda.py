@@ -534,3 +534,155 @@ def test_full_config_frame_matches_cpu_path(cuda):
     diff = np.abs(imgs[0] - imgs[1]).max(axis=-1)
     assert diff.mean() < 1e-4 and np.mean(diff > 1e-3) <= 5e-4
     assert np.abs(imgs[0][..., 3] - 1.0).max() < 1e-5
+
+
+# ---------------------------------------------------------------------- #
+# the benchmarks sub-package's kernels: sorted merge, micro-raster
+# variants, micro block gathers. Merge and gathers move raw words: bit-equal.
+# Micro-raster: 1e-4 per channel in every variant, as the compositor (its
+# plain version walks a chunk's pairs in the kernel's order and evaluates
+# the exponent with the same roundings, so T, the cutoff and the bf16
+# rounding of the weights decide alike).
+# ---------------------------------------------------------------------- #
+def _merge_table(keys, rows=4):
+    k = np.asarray(keys, np.int32)
+    t = [k.view(np.float32)]
+    for r in range(rows - 1):
+        t.append((k.astype(np.float64) * (r + 0.5)).astype(np.float32))
+    t = np.stack(t)
+    # NaN and denormal patterns in the last payload row
+    t[-1, ::7] = np.array([0x7FC00001], np.uint32).view(np.float32)[0]
+    t[-1, 3::11] = np.array([0x00000001], np.uint32).view(np.float32)[0]
+    return torch.from_numpy(t)
+
+
+def _merge_cases():
+    rng = np.random.default_rng(4)
+    keys = (rng.choice(np.int64(1) << 31, size=9000, replace=False)
+            - (np.int64(1) << 30)).astype(np.int32)
+    n = 3000
+    return {
+        "random": (np.sort(keys[:5000]), np.sort(keys[5000:])),
+        "uneven": (np.sort(keys[:64]), np.sort(keys[64:])),
+        "a_below_b": (np.arange(n, dtype=np.int32) - 5000,
+                      np.arange(n, dtype=np.int32) + 7),
+        "b_below_a": (np.arange(n, dtype=np.int32) + 7,
+                      np.arange(n, dtype=np.int32) - 5000),
+        "interleaved": (np.arange(0, 2 * n, 2, dtype=np.int32),
+                        np.arange(1, 2 * n, 2, dtype=np.int32)),
+        "empty_b": (np.sort(keys[:700]), keys[:0]),
+    }
+
+
+@pytest.mark.parametrize("block", [2048, 512, 96])
+@pytest.mark.parametrize("case", ["random", "uneven", "a_below_b",
+                                  "b_below_a", "interleaved", "empty_b"])
+def test_merge_sorted_pair_kernel_bit_equal(cuda, case, block):
+    from gswt_renderer_tpu_torch.benchmarks import mergesorted as ms
+
+    a, b = _merge_cases()[case]
+    ta, tb = _merge_table(a).to(cuda), _merge_table(b).to(cuda)
+    before = kernels.LAUNCHES["merge_sorted_pair"]
+    got = ms.merge_sorted_pair(ta, tb, block=block)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["merge_sorted_pair"] == before + 1
+    want = ms.merge_sorted_pair_plain(ta, tb, block=block)
+    assert got.shape == want.shape and got.shape[1] % block == 0
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    n = a.size + b.size
+    merged = np.sort(np.concatenate([a, b]))
+    assert np.array_equal(got[0, :n].view(torch.int32).cpu().numpy(), merged)
+    tail = got[:, n:].view(torch.int32)
+    assert bool((tail[0] == ms.SENTINEL).all()) and not bool(tail[1:].any())
+    # the split kernel against its plain version, one boundary past the end
+    n_b = got.shape[1] // block + 1
+    ka, kb = ta[0].view(torch.int32), tb[0].view(torch.int32)
+    assert torch.equal(
+        ms.merge_path_splits(ka, kb, block=block, n_blocks=n_b),
+        ms.merge_path_splits_plain(ka, kb, block=block, n_blocks=n_b))
+
+
+def test_merge_sorted_tournament_kernel(cuda):
+    from gswt_renderer_tpu_torch.benchmarks import mergesorted as ms
+
+    rng = np.random.default_rng(6)
+    keys = rng.choice(np.int64(1) << 30, size=50000, replace=False)
+    parts = [np.sort(p) for p in np.array_split(keys.astype(np.int32), 5)]
+    tabs = [_merge_table(p, rows=7).to(cuda) for p in parts]
+    before = kernels.LAUNCHES["merge_sorted_pair"]
+    got = ms.merge_sorted(tabs, block=2048)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["merge_sorted_pair"] == before + 4
+    want = ms.merge_sorted([t.cpu() for t in tabs], block=2048)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    with pytest.raises(ValueError):
+        ms.merge_sorted_pair(tabs[0], tabs[1], block=ms.MAX_BLOCK + 1)
+    with pytest.raises(ValueError):
+        ms.merge_sorted_pair(tabs[0], tabs[1].double())
+
+
+@pytest.mark.parametrize("k,nb", [(11, 300), (16, 17), (3, 1)])
+def test_micro_strided_gather_bit_exact(cuda, k, nb):
+    from gswt_renderer_tpu_torch.benchmarks import micro_blockgather as bg
+
+    rng = np.random.default_rng(k)
+    table = _payload_table(rng, 40)[:k].contiguous().to(cuda)
+    src = torch.from_numpy(rng.integers(0, 40, nb).astype(np.int32)).to(cuda)
+    before = kernels.LAUNCHES["micro_blockgather_strided"]
+    got = bg.gather_strided(table, src)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["micro_blockgather_strided"] == before + 1
+    assert torch.equal(got.view(torch.int32),
+                       bg.gather_strided_plain(table, src).view(torch.int32))
+    with pytest.raises(ValueError):
+        bg.gather_strided(table, src.long())
+
+
+@pytest.mark.parametrize("group,nb", [(8, 64), (8, 61), (1, 9), (5, 3)])
+def test_micro_contig_gather_bit_exact(cuda, group, nb):
+    """`group` need not divide the panel count: the last CTA walks fewer."""
+    from gswt_renderer_tpu_torch.benchmarks import micro_blockgather as bg
+
+    rng = np.random.default_rng(group * 100 + nb)
+    table = _payload_table(rng, 30).reshape(16, 30, 256).permute(1, 0, 2)
+    table = table.contiguous().to(cuda)
+    src = torch.from_numpy(rng.integers(0, 30, nb).astype(np.int32)).to(cuda)
+    before = kernels.LAUNCHES["micro_blockgather_contig"]
+    got = bg.gather_contig(table, src, group=group)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["micro_blockgather_contig"] == before + 1
+    assert torch.equal(got.view(torch.int32),
+                       bg.gather_contig_plain(table, src).view(torch.int32))
+
+
+@pytest.mark.parametrize("name", ["A", "B", "C", "C2", "D"])
+@pytest.mark.parametrize("size", ["small", "tiles_2048px"])
+def test_micro_raster_variant_matches_plain(cuda, name, size):
+    from gswt_renderer_tpu_torch.benchmarks import micro_raster as mr
+
+    image_wh, tile_wh, chunk, pairs = {
+        "small": ((128, 64), (32, 16), 128, 1 << 14),
+        "tiles_2048px": ((256, 96), (64, 32), 256, 1 << 16),
+    }[size]
+    binned = mr.make_binned(pairs, image_wh, tile_wh, seed=3, device=cuda)
+    n_tiles = binned["range_start"].shape[0]
+    depth = 0.3 + 0.7 * torch.rand(
+        (n_tiles, tile_wh[0] * tile_wh[1]), device=cuda,
+        generator=torch.Generator(device=cuda).manual_seed(1))
+    depth[:n_tiles * 3 // 4] = 1.0  # these tiles saturate and leave early
+    b, kw = mr.variant_inputs(binned, name, image_wh=image_wh, tile_wh=tile_wh)
+    kw.update(image_wh=image_wh, tile_wh=tile_wh, chunk=chunk)
+    before = kernels.LAUNCHES["micro_raster"]
+    got = mr.composite(b, depth, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["micro_raster"] == before + 1
+    stats = {}
+    want = mr.composite_plain(b, depth, stats=stats, **kw)
+    # the early exit must have fired for the comparison to cover it
+    assert 0 < stats["pairs"] < int((binned["key"] < n_tiles).sum())
+    assert bool(torch.isfinite(got).all()) and float(got[:, 3].mean()) > 0.3
+    # relative to the tile's largest magnitude where that exceeds 1: D's
+    # bf16 exponent can come out positive, and a pixel's sums are then
+    # signed terms far outside [0, 1] that partly cancel
+    scale = want.abs().amax(dim=(1, 2), keepdim=True).clamp(min=1.0)
+    assert float(((got - want).abs() / scale).max()) <= TOL

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither jax nor the JAX package, and it
-never falls back to the CPU unless asked."""
+"""The port stands alone: it imports neither jax nor the JAX package nor the
+JAX package's benchmark scripts, and it never falls back to the CPU unless
+asked."""
 
 import ast
 import pathlib
@@ -12,7 +13,12 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "gswt_renderer_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "gswt_renderer_tpu")
+# top-level module names the port must not load: jax, the JAX package, and
+# the root bench.py / benchmarks/ scripts (which put their folder on sys.path
+# and import one another by bare name)
+FORBIDDEN = ("jax", "jaxlib", "gswt_renderer_tpu", "bench", "benchmarks",
+             "mergesorted", "micro_merge", "micro_raster",
+             "micro_blockgather")
 
 
 def _modules():
@@ -72,6 +78,28 @@ def test_entry_points_default_to_the_card():
                  synchronous=True, device="cpu")
     assert eng.renderer.device.type == "cpu"
     eng.shutdown()
+
+
+@pytest.mark.parametrize("module", ["headline", "micro_merge", "micro_raster",
+                                    "micro_blockgather"])
+def test_benchmark_scripts_default_to_the_card(module):
+    """Every script of the benchmarks sub-package asks for CUDA unless given
+    --device cpu, and raises before doing any work on a host without it."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    import importlib
+
+    main = importlib.import_module(
+        f"gswt_renderer_tpu_torch.benchmarks.{module}").main
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main([])
+
+
+def test_the_benchmarks_sub_package_is_covered():
+    names = {m.rsplit(".", 1)[1] for m in _modules()
+             if m.startswith("gswt_renderer_tpu_torch.benchmarks.")}
+    assert {"headline", "mergesorted", "micro_merge", "micro_raster",
+            "micro_blockgather", "timing"} <= names
 
 
 def test_unported_paths_raise():
