@@ -17,7 +17,7 @@ camera never teleports inside a run, is replayed in real time through
 
 Prints ``[bench]`` lines (set-up, each run's median, the median and the
 min-max spread over the runs, the interactive latency, the dense row: 8192
-splats per tile, 5 LODs) and, as the last line, one JSON object
+splats per tile, 5 LODs, splats only) and, as the last line, one JSON object
 ``{"metric", "value", "unit", "meta"}`` whose value is frames per second from
 the median of the runs' median frame times. Frame times are host-clock spans
 of 16-frame windows; the clock of a run stops after a device synchronize.
@@ -107,20 +107,18 @@ def fly_path(seconds: float = 4 * LEG_S) -> FlyPathControl:
     return fp
 
 
-def make_engine(scene_vec, width, height, device, *, map_half=48,
-                timeout_s=300.0, **config):
+def make_engine(scene_vec, width, height, device, *, map_half=48):
     """An asynchronous Engine on the benchmark configuration with the skybox
-    and the proxy ground set, ready to render. `config` goes to
-    RendererConfig beside the size: none means the fast profile."""
+    and the proxy ground set, ready to render, in the fast profile
+    (RendererConfig given the size and nothing else)."""
     eng = Engine(scene_vec, viewport=(width, height),
-                 renderer_config=RendererConfig(width=width, height=height,
-                                                **config),
+                 renderer_config=RendererConfig(width=width, height=height),
                  synchronous=False, device=device)
     sky, checker = bench_textures()
     eng.set_skybox(sky, equirect=True)
     eng.set_proxy(checker)
     eng.configure(bench_user_data(map_half))
-    if not eng.wait_ready(timeout_s=timeout_s):
+    if not eng.wait_ready(timeout_s=300.0):
         eng.shutdown()
         raise RuntimeError("engine did not produce a frame")
     return eng
@@ -174,15 +172,26 @@ def interactive_latency_ms(eng, fp, n: int = 16) -> float:
 
 def dense_row(width, height, device, *, splats=8192, n_lod=5, map_half=48,
               n_frames=64):
-    """The density row: `splats` per tile over `n_lod` LODs (decay 4), with
-    twice the default stream budget (the dense scene's visible stream is
-    past the default 1 << 22 lanes and would be truncated), 12 warm-up and
-    n_frames timed frames of a slow drift, timed over 8-frame windows like
-    the headline."""
+    """The density row: `splats` per tile over `n_lod` LODs (decay 4),
+    splats only (no skybox, no proxy ground, unlike the headline's frame),
+    with twice the default stream budget (the dense scene's visible stream
+    is past the default 1 << 22 lanes and would be truncated), 12 warm-up
+    and n_frames timed frames of a slow drift, timed over 8-frame windows
+    like the headline."""
     t0 = time.time()
     sv = synthetic_scene_vec(n_lod=n_lod, splats_per_tile=splats, lod_decay=4)
-    eng = make_engine(sv, width, height, device, map_half=map_half,
-                      timeout_s=900.0, max_stream=1 << 23)
+    eng = Engine(sv, viewport=(width, height),
+                 renderer_config=RendererConfig(width=width, height=height,
+                                                max_stream=1 << 23),
+                 synchronous=False, device=device)
+    eng.configure(UserData.from_ui(
+        tile_map_half_wh=(map_half, map_half),
+        surface_type=SurfaceType.HEIGHT_MAP, height_map_wh=(10, 10),
+        height_map_scale=(1.0, 0.3), lod_max_dist=96.0,
+        merge_dot_threshold=0.2, merge_topk=100))
+    if not eng.wait_ready(timeout_s=900.0):
+        eng.shutdown()
+        raise RuntimeError("the dense engine did not produce a frame")
     move = np.array([0.05, 0.1, 0.0], np.float32)
     for _ in range(12):
         eng.camera.translate(move)
@@ -224,7 +233,6 @@ def main(argv=None):
                     help="tile map half size (48: the 97x97 map)")
     ap.add_argument("--dense-splats", type=int, default=8192,
                     help="splats per tile of the dense row; 0 skips the row")
-    ap.add_argument("--dense-lods", type=int, default=5)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.repeats < 1:
@@ -237,8 +245,7 @@ def main(argv=None):
         kernels.build_all()
 
     scene_vec = synthetic_scene_vec(
-        n_lod=args.lods, splats_per_tile=args.splats,
-        lod_decay=4 if args.lods > 3 else 2, seed=0)
+        n_lod=args.lods, splats_per_tile=args.splats, lod_decay=2, seed=0)
     eng = make_engine(scene_vec, args.width, args.height, device,
                       map_half=args.map_half)
     fp = fly_path(args.seconds)
@@ -290,10 +297,9 @@ def main(argv=None):
     dense = None
     if args.dense_splats > 0:
         dense = dense_row(args.width, args.height, device,
-                          splats=args.dense_splats, n_lod=args.dense_lods,
-                          map_half=args.map_half)
-        print(f"[bench] dense row ({args.dense_splats} splats/tile, "
-              f"{args.dense_lods} LODs): {dense['frame_ms']:.2f} ms "
+                          splats=args.dense_splats, map_half=args.map_half)
+        print(f"[bench] dense row ({args.dense_splats} splats/tile, 5 LODs, "
+              f"splats only): {dense['frame_ms']:.2f} ms "
               f"({dense['fps']:.2f} fps), {dense['n_pairs']} pairs, set-up "
               f"{dense['setup_s']:.1f} s", flush=True)
 

@@ -104,8 +104,11 @@ def composite_plain(binned, depth_tiles, *, image_wh, tile_wh, chunk: int,
     so each tile's carried T is known before its next chunk starts; an entry
     is skipped when its tile's max carried T is below MIN_T. Within an entry
     the pairs are walked one by one, w = (g Tl) Tc then Tl *= 1 - g, as the
-    kernel's threads do. With `stats` (a dict) records the composited pair
-    count under "pairs"."""
+    kernel's threads do. With `stats` (a dict) records under "pairs" the
+    pairs composited before the early exit, under "kept" the pair-pixels of
+    those that pass the cutoff and the depth test, and under "mag" [T, P] each
+    pixel's sum of |w|: the magnitude its four sums' rounding scales with (at
+    most 1 while every g lies in [0, 1])."""
     tw, th = tile_wh
     ntx, _, n_tiles = _grid(image_wh, tile_wh)
     p_n = tw * th
@@ -124,6 +127,8 @@ def composite_plain(binned, depth_tiles, *, image_wh, tile_wh, chunk: int,
     trans = torch.ones((n_tiles, p_n), dtype=torch.float32, device=dev)
     lane = torch.arange(chunk, device=dev)
     composited = torch.zeros((), dtype=torch.int64, device=dev)
+    kept = torch.zeros((), dtype=torch.int64, device=dev)
+    mag = torch.zeros_like(trans) if stats is not None else None
     n_rank = int(rank.max()) + 1 if rank.numel() else 0
     for r in range(n_rank):
         idx = torch.nonzero(rank == r).flatten()
@@ -161,8 +166,11 @@ def composite_plain(binned, depth_tiles, *, image_wh, tile_wh, chunk: int,
             acc[tiles] += torch.bmm(rgb1, weight)
             trans[tiles] = t_carry * t_loc
             composited += in_run.sum()
+            if stats is not None:
+                kept += mask.sum()
+                mag[tiles] += weight.abs().sum(dim=1)
     if stats is not None:
-        stats["pairs"] = int(composited)
+        stats.update(pairs=int(composited), kept=int(kept), mag=mag)
     return acc
 
 

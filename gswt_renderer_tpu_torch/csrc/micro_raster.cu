@@ -32,9 +32,11 @@
 //     rounded to bf16 before the f32 accumulate; Tl and Tc stay f32 from the
 //     un-rounded g.
 //
-// Bound: operations, per composited pair-pixel 10 FP32 operations for e (31
-// when split2), 13 for the rest (FMAs counted twice), 2 more for kBf2's
-// rounding, and one exp on the SFU.
+// Bound: operations. Every pixel of a composited pair needs e (10 FP32
+// operations, 31 when split2) and its compare with the cutoff; only one that
+// passes the cutoff and the depth test needs the rest (13, FMAs counted
+// twice; 2 more for kBf2's rounding) and one exp on the SFU. This kernel
+// runs the rest for every pair-pixel, with g = 0 where the tests fail.
 // Design: as raster.cu. One CTA per image tile, 256 threads with 8 pixels
 // each, Tc, Tl and the four sums in registers for the whole run; a chunk of
 // the table is staged through shared memory (the hi and lo parts of the

@@ -681,8 +681,16 @@ def test_micro_raster_variant_matches_plain(cuda, name, size):
     # the early exit must have fired for the comparison to cover it
     assert 0 < stats["pairs"] < int((binned["key"] < n_tiles).sum())
     assert bool(torch.isfinite(got).all()) and float(got[:, 3].mean()) > 0.3
-    # relative to the tile's largest magnitude where that exceeds 1: D's
-    # bf16 exponent can come out positive, and a pixel's sums are then
-    # signed terms far outside [0, 1] that partly cancel
-    scale = want.abs().amax(dim=(1, 2), keepdim=True).clamp(min=1.0)
-    assert float(((got - want).abs() / scale).max()) <= TOL
+    # absolute wherever a pixel's sum of |w| stays at 1: every pixel of A,
+    # B, C and C2. D's bf16 exponent can come out positive, g exceeds 1, T
+    # changes sign, and such a pixel's sums are signed terms far outside
+    # [0, 1] that partly cancel: those pixels alone are held relative to
+    # their own sum of |w|, which bounds the f32 rounding of the sums
+    mag = stats["mag"][:, None, :]
+    blown = mag > 1.01
+    if name != "D":
+        assert not bool(blown.any())
+    assert float(blown.float().mean()) < 0.5
+    diff = (got - want).abs()
+    assert float(diff[~blown.expand_as(diff)].max()) <= TOL
+    assert float((diff / mag.clamp(min=1.0)).max()) <= TOL

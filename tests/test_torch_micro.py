@@ -177,6 +177,10 @@ def test_micro_raster_variants_against_a():
     _, ref = _port_variant("A", stats=stats)
     live = int((_inputs()[0]["key"] < N_TILES).sum())
     assert 0 < stats["pairs"] < live
+    # few pair-pixels pass the cutoff and the depth test, and A's weights
+    # (g in [0, 0.8]) sum to the pixel's alpha
+    assert 0 < stats["kept"] < stats["pairs"] * P_N // 2
+    np.testing.assert_allclose(stats["mag"].numpy(), ref[:, 3], atol=1e-5)
     err = {n: float(np.abs(_port_variant(n)[1] - ref).max())
            for n in ("B", "C", "C2", "D")}
     assert err["C2"] < 5e-4 and err["B"] < 2e-2 and err["C"] < 2e-2
