@@ -6,8 +6,8 @@
 Phases, each printing its own line; any failure raises (non-zero exit):
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every CUDA kernel of the main paths from csrc/ (eight sources, the
-   compositor in four compile-time variants, the micro-raster in twelve), one
-   nvcc each, all at once;
+   compositor in eight compile-time variants, the micro-raster in twelve),
+   one nvcc each, all at once, with each kernel's registers and spills;
 3. reference: small frames rendered on the card against the port's CPU
    path (the plain PyTorch versions the CPU tests hold against the JAX
    package): gs-only and with skybox + proxy, in the exact profile within
@@ -23,7 +23,12 @@ Phases, each printing its own line; any failure raises (non-zero exit):
    z bit-equal where both hit and attributes <= 1e-5 relative; bilinear
    sampler bit-equal, mip sampler <= 1e-6, the last two at full and at the
    fast profile's half resolution), timed with CUDA events beside its bound
-   and, where one exists, a library call;
+   and, where one exists, a library call (the bilinear sampler and
+   grid_sample also by their own device time in one profiler window); for
+   the compositor also the load it carries (the share of composited
+   pair-pixels kept, the share of (pair, warp block) visits its mask
+   leaves, run lengths per tile), failing if the mask would leave out a
+   kept pair-pixel;
 5. main paths, each with the launch counters zeroed just before and read
    just after: 4 gs-only and 8 full-config 1080p frames along the bench fly
    path through Engine in the exact profile (the earlier slices' paths, at
@@ -65,9 +70,16 @@ FP32_OPS_PER_S = 67e12
 SFU_OPS_PER_S = 132 * 16 * 1.98e9
 # per pair-pixel work of the compositor loop (csrc/raster.cu): 22 FP32
 # operations and one exp; the fast variant adds the weight's round to bf16
-# and back (2); the saturation-slot record adds nothing per pair-pixel
+# and back (2); the saturation-slot record adds nothing per pair-pixel.
+# Its bound counts this work on the pair-pixels that pass the cutoff and the
+# depth test only (a pair-pixel that fails has g = 0 and needs none of it),
+# beside the table rows read once for the composited pairs (11, 12 with the
+# slot), the depth read once and the output written once; the bound is the
+# largest of the FP32, SFU and byte terms. The older convention, every
+# composited pair-pixel counted in full, is printed beside it.
 RASTER_FP32_OPS = 22
 RASTER_FAST_FP32_OPS = 24
+RASTER_ROWS = 11
 
 # per pair-pixel work of the triangle raster loop (csrc/trirast.cu): three
 # plane evaluations (b0, b1, z) of two multiplies and two adds, and two
@@ -292,9 +304,12 @@ def main():
     reports = kernels.build_all()
     print(f"[build] {len(reports)} kernels in {time.time() - t0:.1f} s")
     for name, rep in reports.items():
+        entry = ""
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
+            elif "registers" in line or "spill" in line:
+                print(f"[build] {name} {entry}: {line.strip()}")
 
     # 3. reference on a small input
     phase_reference(torch)
@@ -433,9 +448,14 @@ def main():
                    use_depth=False)
     depth_kw = dict(main_kw, use_depth=True)
 
-    def raster_check(label, table, depth, **kw):
-        """The compositor kernel against its plain version on one table;
-        (kernel output, max abs diff, composited pairs)."""
+    # max abs diff per variant (exact, emit_zcut) over every table checked
+    variant_err = {}
+
+    def raster_check(label, table, depth, show_load=True, **kw):
+        """The compositor kernel against its plain version on one table, and
+        the load it carries (rasterize_plain's stats): (kernel output, max
+        abs diff, stats). Fails if the kernel's warp-block mask would leave
+        out a pair-pixel that passes the cutoff and the depth test."""
         st = {}
         k_out = raster.rasterize(table, depth, **kw)
         p_out = raster.rasterize_plain(table, depth, stats=st, **kw)
@@ -456,20 +476,76 @@ def main():
         if not (e <= RASTER_TOL and torch.isfinite(k_out).all()):
             raise RuntimeError(f"raster {label}: the kernel disagrees with "
                                f"its plain version")
-        return k_out, e, st["pairs"]
+        if st["missed"]:
+            raise RuntimeError(f"raster {label}: the warp-block mask leaves "
+                               f"out pair-pixels that are kept")
+        key = (kw.get("exact", True), kw.get("emit_zcut", False))
+        variant_err[key] = max(variant_err.get(key, 0.0), e)
+        if not show_load:
+            return k_out, e, st
+        runs = st["runs"][st["runs"] > 0].double()
+        done = st["tile_pairs"][st["runs"] > 0].double()
+        q = torch.tensor([0.5, 0.99], dtype=torch.float64, device=runs.device)
+        rq, dq = torch.quantile(runs, q), torch.quantile(done, q)
+        print(f"[load] raster {label}: {st['kept']} of {st['pair_pixels']} "
+              f"composited pair-pixels kept ({st['kept'] / st['pair_pixels']:.5f}); "
+              f"the warp-block mask leaves {st['visits']} of {st['blocks']} "
+              f"(pair, block) visits ({st['visits'] / st['blocks']:.4f}), "
+              f"misses {st['missed']} kept pair-pixels; run length per tile "
+              f"median {rq[0]:.0f}, p99 {rq[1]:.0f}, max {runs.max():.0f} "
+              f"({runs.numel()} tiles with pairs); composited before the "
+              f"early exit median {dq[0]:.0f}, p99 {dq[1]:.0f}, max "
+              f"{done.max():.0f}")
+        return k_out, e, st
+
+    def other_variants(label, table, depth, done, **kw):
+        """The variants (exact, emit_zcut) not in `done` on the same table:
+        all four compositor variants are held on every table."""
+        for exact in (True, False):
+            for zcut in (False, True):
+                if (exact, zcut) not in done:
+                    raster_check(
+                        f"{'exact' if exact else 'fast'}"
+                        f"{' + zcut' if zcut else ''}, {label}", table,
+                        depth, show_load=False,
+                        **dict(kw, exact=exact, emit_zcut=zcut))
 
     def raster_bound_ms(pairs, ops=RASTER_FP32_OPS):
+        """The older convention: every composited pair-pixel in full."""
         pp = pairs * p_n  # pair-pixels the frame composites
         return max(pp * ops / FP32_OPS_PER_S, pp / SFU_OPS_PER_S) * 1e3
 
-    _, err, gs_pairs = raster_check("exact, gs-only frame, no depth test",
-                                    binned, ones, **main_kw)
-    err = max(err, raster_check("exact, gs-only frame, random depth", binned,
-                                rand_depth, **depth_kw)[1])
+    def raster_kept_bound(st, ops, use_depth, zcut=False):
+        """(bound ms, bound_by, terms): the work on the kept pair-pixels,
+        the composited pairs' table rows read once, the depth read once and
+        the output (and the record) written once."""
+        n_tiles_ = st["runs"].shape[0]
+        n_bytes = 4 * (st["pairs"] * (RASTER_ROWS + int(zcut))
+                       + 2 * n_tiles_ + n_tiles_ * 4 * p_n
+                       + (n_tiles_ * p_n if use_depth else 0)
+                       + (n_tiles_ * raster.SAT_BANDS if zcut else 0))
+        terms = dict(operations=st["kept"] * ops / FP32_OPS_PER_S * 1e3,
+                     sfu=st["kept"] / SFU_OPS_PER_S * 1e3,
+                     bytes=n_bytes / HBM_BYTES_PER_S * 1e3)
+        by = max(terms, key=terms.get)
+        return terms[by], "bytes" if by == "bytes" else "operations", terms
+
+    gs_st = raster_check("exact, gs-only frame, no depth test", binned,
+                         ones, **main_kw)[2]
+    raster_check("exact, gs-only frame, random depth", binned, rand_depth,
+                 **depth_kw)
+    done_exact = {(True, False)}
+    other_variants("gs-only frame, no depth test", binned, ones, done_exact,
+                   **main_kw)
+    other_variants("gs-only frame, random depth", binned, rand_depth,
+                   done_exact, **depth_kw)
+    gs_pairs = gs_st["pairs"]
     gs_raster_ms = _time_ms(
         torch, lambda: raster.rasterize(binned, ones, **main_kw), 10)
     print(f"[kernel] raster exact on the gs-only frame, {gs_pairs} pairs x "
           f"{p_n} px, no depth test: {gs_raster_ms:.3f} ms (bound "
+          f"{raster_kept_bound(gs_st, RASTER_FP32_OPS, False)[0]:.3f} from "
+          f"the kept pair-pixels; every pair-pixel in full "
           f"{raster_bound_ms(gs_pairs):.3f})")
 
     # 5a. slice 1's main path: exact gs-only frames, at a cut depth
@@ -642,8 +718,31 @@ def main():
         / HBM_BYTES_PER_S * 1e3,
         bound_by="bytes",
     )
+    # like for like: each call's own device time, kernel and grid_sample in
+    # one profiler window (CUDA events time a sub-0.1 ms call's enqueue)
+    from torch.profiler import ProfilerActivity, profile
+    n_own = 20
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_own):
+            texsample.factored_bilinear(sky_planes, sx, sy, **bl_kw)
+            grid_sample()
+        torch.cuda.synchronize()
+    own = {"bilinear": 0.0, "grid_sample": 0.0}
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = getattr(ev, "self_cuda_time_total", 0.0)
+        key = ("bilinear" if "bilinear_kernel" in ev.key else
+               "grid_sample" if "grid_sampler" in ev.key else None)
+        if key:
+            own[key] += t / 1e3 / n_own
     print(f"[kernel] bilinear: {bl['ms']:.4f} ms (plain {bl['plain_ms']:.4f}, "
-          f"grid_sample {bl['library_ms']:.4f}, bound {bl['bound_ms']:.4f})")
+          f"grid_sample {bl['library_ms']:.4f}, bound {bl['bound_ms']:.4f}); "
+          f"own device time in one profiler window: kernel "
+          f"{own['bilinear']:.4f} ms, grid_sample {own['grid_sample']:.4f} ms")
+    if not (own["bilinear"] > 0 and own["grid_sample"] > 0):
+        raise RuntimeError("the profiler saw no bilinear or grid_sample "
+                           "kernel on the device")
 
     # the exact compositor and the block gather on the exact full-config
     # frame's own inputs: pairs depth-tested against the proxy's depth.
@@ -668,7 +767,9 @@ def main():
             use_skybox=True, use_proxy=True)
         return binned_f, depth_f
 
-    def raster_entry(name, table, depth, e, pairs, ops, **kw):
+    def raster_entry(name, table, depth, e, st, ops, **kw):
+        bound, by, terms = raster_kept_bound(
+            st, ops, kw["use_depth"], kw.get("emit_zcut", False))
         d = dict(
             name=name, route="cuda",
             source="gswt_renderer_tpu_torch/csrc/raster.cu",
@@ -679,19 +780,26 @@ def main():
             plain_ms=_time_ms(
                 torch, lambda: raster.rasterize_plain(table, depth, **kw), 1),
             library_ms=None,  # no stock call composites a sorted pair table
-            bound_ms=raster_bound_ms(pairs, ops),
-            bound_by="operations",
+            bound_ms=bound,
+            bound_by=by,
         )
-        print(f"[kernel] {name} {pairs} pairs x {p_n} px: {d['ms']:.3f} ms "
-              f"(plain {d['plain_ms']:.3f}, bound {d['bound_ms']:.3f})")
+        print(f"[kernel] {name} {st['pairs']} pairs x {p_n} px, "
+              f"{st['kept']} pair-pixels kept: {d['ms']:.3f} ms (plain "
+              f"{d['plain_ms']:.3f}, bound {d['bound_ms']:.4f} by {by}: "
+              f"FP32 {terms['operations']:.4f}, SFU {terms['sfu']:.4f}, "
+              f"bytes {terms['bytes']:.4f}; every pair-pixel in full "
+              f"{raster_bound_ms(st['pairs'], ops):.3f})")
         return d
 
     binned_f, depth_f = frame_inputs(eng)
-    _, e, pairs_f = raster_check(
+    st_f = raster_check(
         "exact, full-config frame, against the proxy depth", binned_f,
-        depth_f, **depth_kw)
-    rs = raster_entry("raster", binned_f, depth_f, max(err, e), pairs_f,
-                      RASTER_FP32_OPS, **depth_kw)
+        depth_f, **depth_kw)[2]
+    other_variants("full-config frame, against the proxy depth", binned_f,
+                   depth_f, done_exact, **depth_kw)
+    rs = raster_entry("raster", binned_f, depth_f,
+                      variant_err[(True, False)], st_f, RASTER_FP32_OPS,
+                      **depth_kw)
     nodepth_ms = _time_ms(torch, lambda: raster.rasterize(
         binned_f, depth_f, **main_kw), 10)
     stats_nd = {}
@@ -735,16 +843,37 @@ def main():
     # half-res, nearest-upsampled proxy depth
     binned_q, depth_q = frame_inputs(eng)
     fast_kw = dict(depth_kw, exact=False)
-    _, e_fast, pairs_q = raster_check(
+    st_q = raster_check(
         "fast, full-config frame, against the half-res proxy depth",
-        binned_q, depth_q, **fast_kw)
-    _, e_zcut, pairs_z = raster_check(
+        binned_q, depth_q, **fast_kw)[2]
+    st_z = raster_check(
         "fast + zcut, the same table", binned_q, depth_q, emit_zcut=True,
-        **fast_kw)
-    rf = raster_entry("raster_fast", binned_q, depth_q, e_fast, pairs_q,
+        **fast_kw)[2]
+    other_variants("fast frame's table", binned_q, depth_q,
+                   {(False, False), (False, True)}, **depth_kw)
+    # each entry's max_abs_err: its variant over every table it was held on
+    rs["max_abs_err"] = variant_err[(True, False)]
+    rf = raster_entry("raster_fast", binned_q, depth_q,
+                      variant_err[(False, False)], st_q,
                       RASTER_FAST_FP32_OPS, **fast_kw)
-    rz = raster_entry("raster_fast_zcut", binned_q, depth_q, e_zcut, pairs_z,
+    rz = raster_entry("raster_fast_zcut", binned_q, depth_q,
+                      variant_err[(False, True)], st_z,
                       RASTER_FAST_FP32_OPS, emit_zcut=True, **fast_kw)
+    print(f"[kernel] raster, all four variants on the gs-only (untested and "
+          f"random depth), exact and fast full-config tables: max abs diff "
+          f"per (exact, zcut) {variant_err}")
+    # the longest run alone: a tile is one CTA walking its run in order, so
+    # the kernel takes at least this tile's time on one SM
+    runs_q = binned_q["range_end"] - binned_q["range_start"]
+    top = int(torch.argmax(runs_q))
+    alone = dict(binned_q, **{k: torch.where(
+        torch.arange(n_tiles, device="cuda") == top, binned_q[k], 0).int()
+        .contiguous() for k in ("range_start", "range_end")})
+    alone_ms = _time_ms(torch, lambda: raster.rasterize(
+        alone, depth_q, **fast_kw), 10)
+    print(f"[kernel] raster_fast on the longest run alone ({int(runs_q[top])} "
+          f"pairs, tile {top}): {alone_ms:.3f} ms of the frame's "
+          f"{rf['ms']:.3f} ms")
     exact_on_q_ms = _time_ms(torch, lambda: raster.rasterize(
         binned_q, depth_q, **depth_kw), 10)
     print(f"[kernel] raster variants on the fast frame's table: exact "
@@ -902,11 +1031,14 @@ def main():
     # 1.01 is held to 1e-4 of that sum (the f32 rounding of its sums scales
     # with it) and is left out of the absolute figure; the share of such
     # pixels is printed, and must be 0 in A, B, C and C2.
-    # Bound: operations that this run's data needs. Every pixel of a
-    # composited pair needs the exponent (10 FP32 operations, 31 when split2)
-    # and its compare with the cutoff; only a pair-pixel that passes the
-    # cutoff and the depth test needs the rest (13 operations, 2 more for the
-    # bf16 rounding) and the exp on the SFU. The plain version counts both.
+    # Bound: the compositor's convention (RASTER_FP32_OPS above): the whole
+    # per-pair-pixel work (the exponent, 10 FP32 operations or 31 when
+    # split2, its compare, the other 13, 2 more for the bf16 rounding, and
+    # the exp) on the pair-pixels that pass the cutoff and the depth test,
+    # beside the 11 table rows of the composited pairs, the depth and the
+    # output, each moved once; the plain version counts the pairs and the
+    # kept pair-pixels. PR 4's convention (the exponent and compare on every
+    # composited pair-pixel) is printed beside it.
     mr_pairs, mr_chunk = 1 << 22, 256
     mr_binned = micro_raster.make_binned(mr_pairs, image_wh, tile_wh,
                                          device="cuda")
@@ -930,11 +1062,16 @@ def main():
         mr_out[name] = k_out
         err_a = float((k_out - mr_out["A"]).abs().amax())
         pp, kept = st["pairs"] * p_n, st["kept"]
-        fp32_ops = pp * (mr_ops[prec] + 1) + kept * (13 + (2 if bf2 else 0))
+        rest = 13 + (2 if bf2 else 0)
+        n_bytes = 4 * (st["pairs"] * RASTER_ROWS + 2 * n_tiles
+                       + 5 * n_tiles * p_n)
         mr_info[name] = dict(
             err=e, plain_ms=plain_ms, pairs=st["pairs"], kept_share=kept / pp,
-            bound_ms=max(fp32_ops / FP32_OPS_PER_S,
-                         kept / SFU_OPS_PER_S) * 1e3)
+            bound_ms=max(kept * (mr_ops[prec] + 1 + rest) / FP32_OPS_PER_S,
+                         kept / SFU_OPS_PER_S,
+                         n_bytes / HBM_BYTES_PER_S) * 1e3,
+            bound_pr4_ms=max((pp * (mr_ops[prec] + 1) + kept * rest)
+                             / FP32_OPS_PER_S, kept / SFU_OPS_PER_S) * 1e3)
         print(f"[kernel] micro_raster {name} ({text}): max |diff| {e:.3e} "
               f"against its plain version; {blown_share:.3e} of the pixels "
               f"have a sum of |w| over 1.01 and differ by at most "
@@ -1025,8 +1162,10 @@ def main():
         print(f"[kernel] micro_raster {name} {info['pairs']} pairs x {p_n} "
               f"px, {info['kept_share']:.4f} of them kept: "
               f"{mr_res[name]['ms']:.3f} ms (plain {info['plain_ms']:.1f}, "
-              f"bound {info['bound_ms']:.3f}), max "
-              f"|err| against A {mr_res[name]['err_vs_a']:.3e}")
+              f"bound {info['bound_ms']:.4f} from the kept pair-pixels; "
+              f"PR 4's, the exponent on every one, "
+              f"{info['bound_pr4_ms']:.3f}), max |err| against A "
+              f"{mr_res[name]['err_vs_a']:.3e}")
     # label -> (table rows, the script's kernel line, its library line, the
     # entry's name and the TPU call site it replaces; group 1 is the same
     # kernel as group 8 and is listed once)

@@ -92,9 +92,10 @@ def gather_contig_plain(table_bc, src):
 
 def gather_contig(table_bc, src, *, group: int = 8):
     """table_bc [NPB, K, B] float32 (a panel is contiguous; K * B a multiple
-    of 4), src [NB] int32 panel ids. Returns [NB, K, B] with panel b a copy
-    of panel src[b]; `group` panels per thread block (any NB). CPU tensors
-    take the plain version; CUDA tensors launch the kernel."""
+    of 4; 16-B aligned on the card), src [NB] int32 panel ids. Returns [NB,
+    K, B] with panel b a copy of panel src[b] (zeros for an id outside the
+    table); `group` panels per thread block (any NB). CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
     if table_bc.dim() != 3 or (table_bc.shape[1] * table_bc.shape[2]) % 4:
         raise ValueError("table_bc must be [NPB, K, B] with K * B a multiple "
                          "of 4")
@@ -103,6 +104,9 @@ def gather_contig(table_bc, src, *, group: int = 8):
     if not table_bc.is_cuda:
         return gather_contig_plain(table_bc, src)
     _check("table_bc", table_bc, src)
+    if table_bc.data_ptr() % 16:
+        raise ValueError("table_bc must be 16-B aligned (the kernel moves "
+                         "panels with bulk copies)")
     npb, k, b = table_bc.shape
     nb = src.shape[0]
     out = torch.empty((nb, k, b), dtype=table_bc.dtype,

@@ -7,12 +7,20 @@ T = prod(1 - g_j): the final colour sum_i c_i g_i T_i is algebraically
 identical to back-to-front ONE/ONE_MINUS_SRC_ALPHA blending.
 
 On the card the compositor is the CUDA kernel ``csrc/raster.cu`` (one thread
-block per tile, T and the colour sums in registers); on the CPU it is
+block per tile, T and the colour sums in registers, each of its 32 warps
+owning one compact block of the tile: ``warp_layout``); on the CPU it is
 ``rasterize_plain``, the same function over the (tile, chunk) worklist.
 Both stop compositing a tile once max T < MIN_T, tested where each chunk of
 the table begins. Both come in the exact and the fast profile's variant
 (bf16-rounded weights and colours), each with or without the saturation-slot
 record the temporal saturation cull feeds back into binning.
+
+The kernel skips, warp by warp, every pair that cannot reach the cutoff (or
+pass the depth test) anywhere in the warp's block: ``pair_block_mask`` is
+its conservative per-pair mask, computed here with the same operations, so
+the CPU tests can show that it covers every kept pair-pixel and that
+``rasterize_plain(block_mask=True)``, which skips as the kernel does, gives
+the same bits.
 """
 
 from __future__ import annotations
@@ -33,7 +41,14 @@ SAT_NOCUT = float(1 << 25)
 _SCUT_BUMP = 0.5
 SAT_BANDS = 4  # horizontal bands per tile in the saturation record
 MAX_CHUNK = 256  # the CUDA kernel stages one chunk in shared memory
-MAX_TILE_PIXELS = 2048  # 256 threads x 8 pixels
+MAX_TILE_PIXELS = 2048  # 1024 threads x 2 pixels
+N_WARPS = 32  # warps per thread block: one block of the tile each
+_BLOCK_W, _BLOCK_H = 16, 4  # warp blocks where 32 of them cover the tile
+_FLAT = MAX_TILE_PIXELS // N_WARPS  # pixels per warp in the flat layout
+# the mask's limit: CUTOFF - _MASK_MARGIN - _MASK_REL * (the magnitude of the
+# terms the kernel's f32 exponent sums; its rounding is below 6 * 2^-24 of it)
+_MASK_MARGIN = 1.0
+_MASK_REL = 2.0 ** -20
 # worklist entries per step of the plain version: bounds its [B, C, P]
 # temporaries (64 x 256 x 2048 f32 = 128 MiB each at 1080p)
 _PLAIN_BATCH = 64
@@ -56,9 +71,129 @@ def _pixel_monomials(tw, th, device):
     return u * u, u * v, v * v, u, v
 
 
+def warp_layout(tile_wh, device=None):
+    """Which pixels each of the kernel's 32 warps owns: the units of its
+    pair mask.
+
+    16x4 blocks when ceil(tw/16) * ceil(th/4) <= 32 (a 64x32 tile: 4 x 8),
+    warp w the block (w % nbx, w // nbx); else the flat layout, warp w the
+    pixels 64w .. 64w + 63 of the row-major tile. Returns (rects, warp):
+    rects [32, 4] f32, each warp's rectangle of pixel centres (u0, u1, v0,
+    v1), with u0 > u1 for a warp without pixels (the rows it spans, and the
+    columns when they lie in one row); warp [tw * th] i64, the owner of
+    pixel p = y * tw + x."""
+    tw, th = tile_wh
+    nbx, nby = -(-tw // _BLOCK_W), -(-th // _BLOCK_H)
+    p = torch.arange(tw * th, device=device)
+    x, y = p % tw, torch.div(p, tw, rounding_mode="floor")
+    rects = []
+    if nbx * nby <= N_WARPS:
+        warp = (torch.div(y, _BLOCK_H, rounding_mode="floor") * nbx
+                + torch.div(x, _BLOCK_W, rounding_mode="floor"))
+        for w in range(N_WARPS):
+            x0, y0 = w % nbx * _BLOCK_W, w // nbx * _BLOCK_H
+            rects.append((x0, min(x0 + _BLOCK_W - 1, tw - 1), y0,
+                          min(y0 + _BLOCK_H - 1, th - 1), y0 >= th))
+    else:
+        warp = torch.div(p, _FLAT, rounding_mode="floor")
+        for w in range(N_WARPS):
+            p0, p1 = _FLAT * w, min(_FLAT * (w + 1) - 1, tw * th - 1)
+            y0, y1 = p0 // tw, p1 // tw
+            one_row = y0 == y1
+            rects.append((p0 % tw if one_row else 0,
+                          p1 % tw if one_row else tw - 1, y0, y1, y0 >= th))
+    r = torch.tensor([[1.0, 0.0, y0 + 0.5, y1 + 0.5] if none else
+                      [x0 + 0.5, x1 + 0.5, y0 + 0.5, y1 + 0.5]
+                      for x0, x1, y0, y1, none in rects],
+                     dtype=torch.float32, device=device)
+    return r, warp
+
+
+def warp_depth_max(depth_tiles, warp):
+    """[T, 32]: the largest depth of each warp's pixels per tile (NaN depths
+    ignored, -inf for none), what the kernel's mask tests z against."""
+    d = torch.nan_to_num(depth_tiles, nan=-torch.inf)
+    out = torch.full((d.shape[0], N_WARPS), -torch.inf, dtype=d.dtype,
+                     device=d.device)
+    return out.scatter_reduce(1, warp.expand(d.shape[0], -1), d, "amax")
+
+
+def _rect_min_q(a, b, c, rba, rbc, lx0, lx1, ly0, ly1):
+    """ops/binning.py _rect_min_q over a positive definite quadratic, with
+    the kernel's operation order (b / a and b / c given)."""
+    inside = (lx0 <= 0.0) & (0.0 <= lx1) & (ly0 <= 0.0) & (0.0 <= ly1)
+
+    def edge_x(dx):  # x fixed at dx, y in [ly0, ly1]
+        t = torch.minimum(torch.maximum(-(rbc * dx), ly0), ly1)
+        return (a * dx) * dx + ((2.0 * b) * dx) * t + (c * t) * t
+
+    def edge_y(dy):  # y fixed at dy, x in [lx0, lx1]
+        t = torch.minimum(torch.maximum(-(rba * dy), lx0), lx1)
+        return (c * dy) * dy + ((2.0 * b) * dy) * t + (a * t) * t
+
+    m = torch.minimum(torch.minimum(edge_x(lx0), edge_x(lx1)),
+                      torch.minimum(edge_y(ly0), edge_y(ly1)))
+    return torch.where(inside, 0.0, m)
+
+
+def pair_block_mask(k, z, rects, dmax=None):
+    """The kernel's per-pair warp-block mask (csrc/raster.cu
+    pair_block_mask), with the same f64 operations in the same order.
+
+    k: 6 tensors (the table rows k0..k5) of one shape [...]; z the same
+    shape; rects from warp_layout; dmax (optional, broadcastable to [...,
+    32]): each block's largest depth, for use_depth. Returns [..., 32] bool:
+    False only where no pixel centre of the block can give e >= CUTOFF in
+    the kernel's f32 evaluation of the exponent (or, with dmax, z < depth).
+
+    The bound: the max of e over the block's rectangle is the peak e_c less
+    the min of the positive definite -e + e_c over the rectangle shifted to
+    the centre; the centre and e_c come from the f32 coefficients by exact
+    f64 products, one rounded subtraction and one division. It is tested
+    against CUTOFF - 1 - 2^-20 S, S the magnitude of the terms (those the
+    kernel sums at the block's far corner, and those e_c sums). A quadratic
+    that is not negative definite gets the block unless the trivial bound
+    k5 + sum |k_i| m_i (m_i the block's largest monomials) is below the
+    limit; so a dead pair (k5 = -1e30) gets none."""
+    k0, k1, k2, k3, k4, k5 = (t.double()[..., None] for t in k)
+    a, b, c = -k0, -0.5 * k1, -k2
+    det = a * c - b * b
+    definite = (a > 0.0) & (det > 0.0)
+    half_inv = 0.5 / torch.where(definite, det, 1.0)
+    uc = (c * k3 - b * k4) * half_inv
+    vc = (a * k4 - b * k3) * half_inv
+    tu, tv = k3 * uc, k4 * vc
+    ec = k5 + 0.5 * (tu + tv)
+    mc = tu.abs() + tv.abs()
+    rba = b / torch.where(definite, a, 1.0)
+    rbc = b / torch.where(definite, c, 1.0)
+    zero = torch.zeros((), dtype=torch.float64, device=det.device)
+    uc, vc, ec, mc = (torch.where(definite, t, zero) for t in (uc, vc, ec, mc))
+    u0, u1, v0, v1 = rects.double().unbind(1)
+    s5 = ((((k0.abs() * (u1 * u1) + k1.abs() * (u1 * v1))
+            + k2.abs() * (v1 * v1)) + k3.abs() * u1) + k4.abs() * v1)
+    lim = CUTOFF - (_MASK_MARGIN + _MASK_REL * ((s5 + k5.abs()) + mc))
+    rmin = _rect_min_q(a, b, c, rba, rbc, u0 - uc, u1 - uc, v0 - vc, v1 - vc)
+    reach = ~(k5 + s5 < lim) & (~definite | ~(ec - rmin < lim))
+    reach &= u0 <= u1
+    if dmax is not None:
+        reach &= z[..., None] < dmax
+    return reach
+
+
+def _exponent(k, mono):
+    """e at every pixel, in the kernel's order of operations (csrc/raster.cu
+    rounds each multiply and add on its own), so that the cutoff mask
+    decides identically. k: 6 tensors [...,]; mono: (uu, uv, vv, u, v)."""
+    uu, uv, vv, u, v = mono
+    k = [t[..., None] for t in k]
+    return k[0] * uu + k[1] * uv + k[2] * vv + k[3] * u + k[4] * v + k[5]
+
+
 def rasterize_plain(binned, depth_tiles, *, image_wh, tile_wh, chunk: int,
                     use_depth: bool = True, exact: bool = True,
-                    emit_zcut: bool = False, stats=None):
+                    emit_zcut: bool = False, block_mask: bool = False,
+                    stats=None):
     """Plain PyTorch compositor with the kernel's semantics and the kernel's
     order of operations.
 
@@ -75,8 +210,18 @@ def rasterize_plain(binned, depth_tiles, *, image_wh, tile_wh, chunk: int,
     colour is rounded to bf16 before the f32 accumulate (alpha is the sum
     of the rounded weights); T stays f32 from the un-rounded weights.
     emit_zcut also returns the saturation-slot record [n_tiles, SAT_BANDS]
-    (see rasterize). With `stats` (a dict) records the composited pair
-    count under "pairs"."""
+    (see rasterize). block_mask=True skips, as the kernel does, the
+    pair-pixels of the warp blocks that pair_block_mask leaves out: the
+    result is the same to the bit.
+
+    With `stats` (a dict) records the load the compositor carries, over the
+    pairs composited before the early exit: "pairs" (their count),
+    "pair_pixels" (times the tile's pixels), "kept" (pair-pixels that pass
+    the cutoff and the depth test), "visits" (pair x warp-block visits the
+    mask leaves), "blocks" (pairs x warp blocks with pixels), "missed"
+    (kept pair-pixels whose block the mask leaves out: 0 when the mask is
+    conservative), "tile_pairs" ([n_tiles] composited pairs per tile) and
+    "runs" ([n_tiles] run lengths in the table)."""
     tw, th = tile_wh
     _, _, n_tiles = _grid(image_wh, tile_wh)
     p_n = tw * th
@@ -88,7 +233,14 @@ def rasterize_plain(binned, depth_tiles, *, image_wh, tile_wh, chunk: int,
     et = wl["entry_tile"].long()
     ec = wl["entry_chunk"].long()
     rank = ec - torch.div(rs[et], chunk, rounding_mode="floor")
-    uu, uv, vv, u, v = _pixel_monomials(tw, th, dev)
+    mono = _pixel_monomials(tw, th, dev)
+    masked = block_mask or stats is not None
+    if masked:
+        rects, warp = warp_layout(tile_wh, dev)
+        dmax = warp_depth_max(depth_tiles, warp) if use_depth else None
+        n_blocks = int((rects[:, 0] <= rects[:, 1]).sum())
+        load = torch.zeros(4, dtype=torch.int64, device=dev)
+        tile_pairs = torch.zeros(n_tiles, dtype=torch.int64, device=dev)
     acc = torch.zeros((n_tiles, 4, p_n), dtype=torch.float32, device=dev)
     trans = torch.ones((n_tiles, p_n), dtype=torch.float32, device=dev)
     rec = torch.zeros_like(trans) if emit_zcut else None
@@ -105,13 +257,22 @@ def rasterize_plain(binned, depth_tiles, *, image_wh, tile_wh, chunk: int,
             cols = ec[sel, None] * chunk + lane  # [B, C]
             blk = table[:, cols]  # [16, B, C]
             in_run = (cols >= rs[tiles, None]) & (cols < re_[tiles, None])
-            k = [blk[i][..., None] for i in range(6)]  # [B, C, 1]
-            # same operation order as the kernel (csrc/raster.cu), so the
-            # cutoff mask decides identically
-            e = k[0] * uu + k[1] * uv + k[2] * vv + k[3] * u + k[4] * v + k[5]
+            e = _exponent(blk[:6], mono)  # [B, C, P]
             mask = (e >= CUTOFF) & in_run[..., None]
             if use_depth:
                 mask &= blk[6][..., None] < depth_tiles[tiles][:, None, :]
+            if masked:
+                reach = pair_block_mask(
+                    blk[:6], blk[6], rects,
+                    None if dmax is None else dmax[tiles][:, None, :])
+                reach &= in_run[..., None]  # [B, C, 32]
+                px_reach = reach[..., warp]  # [B, C, P]
+                load += torch.stack([
+                    mask.sum(), reach.sum(), (mask & ~px_reach).sum(),
+                    in_run.sum() * n_blocks])
+                tile_pairs.index_add_(0, tiles, in_run.sum(1))
+                if block_mask:
+                    mask &= px_reach
             g = torch.where(mask, torch.exp(e + blk[11][..., None]), 0.0)
             omg = 1.0 - g
             t = trans[tiles]  # [B, P], T where the entry starts
@@ -134,6 +295,11 @@ def rasterize_plain(binned, depth_tiles, *, image_wh, tile_wh, chunk: int,
             composited += in_run.sum()
     if stats is not None:
         stats["pairs"] = int(composited)
+        stats["pair_pixels"] = int(composited) * p_n
+        stats["kept"], stats["visits"], stats["missed"], stats["blocks"] = (
+            int(x) for x in load)
+        stats["tile_pairs"] = tile_pairs
+        stats["runs"] = re_ - rs
     if not emit_zcut:
         return acc
     # per band b = min(row // (th // SAT_BANDS), SAT_BANDS - 1): the max
@@ -181,15 +347,19 @@ def rasterize(binned, depth_tiles, *, image_wh, tile_wh, chunk: int,
     tw, th = tile_wh
     _, _, n_tiles = _grid(image_wh, tile_wh)
     p_n = tw * th
-    if chunk > MAX_CHUNK or p_n > MAX_TILE_PIXELS:
-        raise ValueError(f"the CUDA compositor takes chunk <= {MAX_CHUNK} "
-                         f"and tiles of <= {MAX_TILE_PIXELS} pixels")
+    if chunk > MAX_CHUNK or chunk % 4 or p_n > MAX_TILE_PIXELS:
+        raise ValueError(f"the CUDA compositor takes chunk <= {MAX_CHUNK}, a "
+                         f"multiple of 4, and tiles of <= {MAX_TILE_PIXELS} "
+                         f"pixels")
     rs = binned["range_start"]
     re_ = binned["range_end"]
     dev = table.device
+    # the kernel stages whole chunks with 16-B aligned bulk copies
     if (table.dtype != torch.float32 or not table.is_contiguous()
-            or table.shape[0] != 16):
-        raise ValueError("table must be a contiguous float32 [16, dom]")
+            or table.shape[0] != 16 or table.shape[1] % chunk
+            or table.data_ptr() % 16):
+        raise ValueError("table must be a contiguous, 16-B aligned float32 "
+                         "[16, dom] with dom a multiple of chunk")
     for name, t in (("range_start", rs), ("range_end", re_)):
         if (t.dtype != torch.int32 or not t.is_contiguous()
                 or t.shape != (n_tiles,) or t.device != dev):

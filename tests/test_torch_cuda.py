@@ -694,3 +694,121 @@ def test_micro_raster_variant_matches_plain(cuda, name, size):
     diff = (got - want).abs()
     assert float(diff[~blown.expand_as(diff)].max()) <= TOL
     assert float((diff / mag.clamp(min=1.0)).max()) <= TOL
+
+
+# the compositor's warp-block mask and staging ring (csrc/raster.cu) on
+# tables built to break them, and the bulk-copy contiguous gather
+
+_VARIANTS = [(True, False), (False, False), (True, True), (False, True)]
+
+
+@pytest.mark.parametrize("tile_wh", [(64, 32), (64, 30), (48, 40), (100, 20)])
+@pytest.mark.parametrize("exact,emit_zcut", _VARIANTS)
+def test_raster_on_adversarial_tables(cuda, tile_wh, exact, emit_zcut):
+    """All four variants against the plain version on needle-thin, edge-on,
+    sub-pixel, tile-sized, off-tile, non-definite and dead pairs (peaks
+    moved to around the cutoff), in the 16x4-block warp layout (64x32; 64x30
+    with partial blocks; 48x40 with warps without pixels) and the flat one
+    (100x20): within TOL, the saturation-slot record equal."""
+    from torch_tables import adversarial_binned
+
+    b, image_wh = adversarial_binned(7, tile_wh, exact=exact)
+    b = {k: v.to(cuda) for k, v in b.items()}
+    n_px = tile_wh[0] * tile_wh[1]
+    depth = torch.rand((4, n_px), device=cuda,
+                       generator=torch.Generator(device=cuda).manual_seed(2))
+    for use_depth in (False, True):
+        kw = dict(image_wh=image_wh, tile_wh=tile_wh, chunk=128,
+                  use_depth=use_depth, exact=exact, emit_zcut=emit_zcut)
+        before = kernels.LAUNCHES["raster"]
+        got = raster.rasterize(b, depth, **kw)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["raster"] == before + 1
+        want = raster.rasterize_plain(b, depth, **kw)
+        if emit_zcut:
+            (got, zcut), (want, zwant) = got, want
+            assert torch.equal(zcut, zwant)
+        assert bool(torch.isfinite(got).all())
+        assert float((got - want).abs().max()) <= TOL
+        assert float(want[:, 3].max()) > 0.5
+
+
+@pytest.mark.parametrize("tile_wh", [(100, 20), (32, 16)])
+@pytest.mark.parametrize("exact,emit_zcut", _VARIANTS)
+def test_raster_on_binned_splats_other_tile_sizes(cuda, tile_wh, exact,
+                                                  emit_zcut):
+    """bin_pairs' own table at tile sizes RendererConfig accepts besides
+    64x32: 100x20 (the flat warp layout) and 32x16 (eight 16x4 blocks,
+    24 warps without pixels), chunk 256, under a random depth."""
+    image_wh = (3 * tile_wh[0], 4 * tile_wh[1])
+    p = _opaque_splats(2500, 4, cuda)
+    p["cx"] = p["cx"] * (image_wh[0] / 256)
+    p["cy"] = p["cy"] * (image_wh[1] / 128)
+    p["color"] = p["color"][:3] + (p["color"][3] * 0.5,)
+    b = binning.bin_pairs(p, image_wh=image_wh, tile_wh=tile_wh, chunk=256,
+                          exact=exact)
+    n_tiles = b["range_start"].shape[0]
+    depth = 0.1 + 0.9 * torch.rand(
+        (n_tiles, tile_wh[0] * tile_wh[1]), device=cuda,
+        generator=torch.Generator(device=cuda).manual_seed(3))
+    kw = dict(image_wh=image_wh, tile_wh=tile_wh, chunk=256, use_depth=True,
+              exact=exact, emit_zcut=emit_zcut)
+    got = raster.rasterize(b, depth, **kw)
+    want = raster.rasterize_plain(b, depth, **kw)
+    if emit_zcut:
+        (got, zcut), (want, zwant) = got, want
+        assert torch.equal(zcut, zwant)
+    assert float((got - want).abs().max()) <= TOL
+    assert float(got[:, 3].max()) > 0.5
+
+
+def test_raster_rejects_tables_it_cannot_stage(cuda):
+    """The staging copies move whole 16-B aligned chunks: chunk must be a
+    multiple of 4 and dom a multiple of chunk."""
+    b = _saturating_binned(128, 0, 0.5, cuda)
+    depth = torch.ones((2, 2048), device=cuda)
+    kw = dict(image_wh=(128, 32), tile_wh=(64, 32), use_depth=False)
+    with pytest.raises(ValueError):
+        raster.rasterize(b, depth, chunk=126, **kw)
+    with pytest.raises(ValueError):
+        raster.rasterize(dict(b, table=b["table"][:, :1000].contiguous()),
+                         depth, chunk=128, **kw)
+
+
+@pytest.mark.parametrize("k,b_cols,group,nb", [
+    (16, 256, 8, 61),   # 16 KiB panels, the last CTA walks five
+    (16, 256, 7, 50),   # group larger than the 4-stage ring
+    (16, 256, 1, 1),    # a single panel
+    (16, 256, 4, 1),    # a single panel, its id outside the table
+    (40, 256, 3, 10),   # 40 KiB panels: three pieces each
+    (1, 4, 5, 33),      # 16-byte panels
+])
+def test_micro_contig_gather_out_of_range_and_shapes(cuda, k, b_cols, group,
+                                                     nb):
+    """The bulk-copy gather, bit-exact: ids outside the table (negative and
+    past the end) write zeros, every other panel is the plain version's."""
+    from gswt_renderer_tpu_torch.benchmarks import micro_blockgather as bg
+
+    rng = np.random.default_rng(k * 1000 + nb)
+    npb = 23
+    words = rng.integers(0, 2**32, (npb, k, b_cols),
+                         dtype=np.uint64).astype(np.uint32)
+    table = torch.from_numpy(words.view(np.float32)).to(cuda)
+    ids = rng.integers(0, npb, nb).astype(np.int32)
+    bad = ids[group % 4::4]  # a view: group 4 puts the first id out
+    bad[:] = rng.choice(np.array([-1, -7, npb, npb + 100], np.int32),
+                        len(bad))
+    src = torch.from_numpy(ids).to(cuda)
+    before = kernels.LAUNCHES["micro_blockgather_contig"]
+    got = bg.gather_contig(table, src, group=group)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["micro_blockgather_contig"] == before + 1
+    inside = (src >= 0) & (src < npb)
+    want = torch.zeros_like(got).view(torch.int32)
+    want[inside] = bg.gather_contig_plain(table, src[inside]).view(torch.int32)
+    if nb > 1:
+        assert bool((~inside).any()) and bool(inside.any())
+    assert torch.equal(got.view(torch.int32), want)
+    with pytest.raises(ValueError):
+        bg.gather_contig(table.view(-1)[1:].view(-1)[:4 * (npb - 1)]
+                         .view(npb - 1, 1, 4), src, group=group)

@@ -18,6 +18,7 @@ from gswt_renderer_tpu.ops import binning as jbin
 from gswt_renderer_tpu.ops import raster as jr
 from gswt_renderer_tpu_torch.ops import kernels
 from gswt_renderer_tpu_torch.ops import raster as tr
+from torch_tables import adversarial_binned, adversarial_table
 
 TOL = 1e-4
 # Fast profile against the JAX fast kernel. Both round weights and colours to
@@ -310,3 +311,125 @@ def test_tile_image_layouts_match_jax(wh):
         np.asarray(jr.image_to_depth_tiles(jnp.asarray(depth), image_wh=wh,
                                            tile_wh=tile_wh)))
 
+
+
+# --------------------------------------------------------------------- #
+# the kernel's per-pair warp-block mask (csrc/raster.cu pair_block_mask)
+# --------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("tile_wh", [(64, 32), (64, 30), (48, 40), (16, 128),
+                                     (100, 20)])
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_block_mask_is_conservative_on_adversarial_pairs(seed, exact, tile_wh):
+    """Every pixel whose exponent, evaluated in the kernel's f32 order,
+    reaches the cutoff lies in a warp block whose bit is set; dead pairs get
+    no bit, pairs that cannot be bounded get every block they may reach, and
+    the mask still leaves most blocks of the small splats."""
+    table = adversarial_table(seed, tile_wh, exact)
+    rects, warp = tr.warp_layout(tile_wh)
+    e = tr._exponent(table[:6], tr._pixel_monomials(*tile_wh, "cpu"))
+    reach = tr.pair_block_mask(table[:6], table[6], rects)  # [N, 32]
+    hit = e >= tr.CUTOFF
+    assert int(hit.sum()) > 1000, "the table must hit pixels"
+    assert not bool((hit & ~reach[:, warp]).any()), "a hit pixel's block is left out"
+    dead = table[5] == -1e30
+    assert bool(dead.any()) and not bool(reach[dead].any())
+    # the small splats and the near-cutoff ones leave blocks out
+    n_blocks = int((rects[:, 0] <= rects[:, 1]).sum())
+    assert float(reach[~dead].float().mean()) < 0.75 * n_blocks / 32
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_block_mask_with_depth_covers_kept_pixels(exact):
+    """With a depth: every pixel that passes the cutoff AND z < depth lies in
+    a reached block, and a block whose pixels all lie in front of z (depth
+    <= z) is left out."""
+    tile_wh = (64, 32)
+    table = adversarial_table(3, tile_wh, exact)
+    rects, warp = tr.warp_layout(tile_wh)
+    rng = np.random.default_rng(4)
+    depth = torch.from_numpy(rng.uniform(0, 1, (1, 2048)).astype(np.float32))
+    depth[0, warp == 5] = 0.0  # nothing passes z < depth in block 5
+    depth[0, 7] = float("nan")
+    dmax = tr.warp_depth_max(depth, warp)
+    e = tr._exponent(table[:6], tr._pixel_monomials(*tile_wh, "cpu"))
+    keep = (e >= tr.CUTOFF) & (table[6][:, None] < depth)
+    reach = tr.pair_block_mask(table[:6], table[6], rects, dmax)
+    assert int(keep.sum()) > 500
+    assert not bool((keep & ~reach[:, warp]).any())
+    assert not bool(reach[:, 5].any())
+
+
+def _fixture_binned(exact, seed=0):
+    image_wh, tile_wh, chunk = (256, 128), (64, 32), 128
+    b = jbin.bin_pairs(_jax_tree(_proj(1500, seed, *image_wh)),
+                       image_wh=image_wh, tile_wh=tile_wh, max_pairs=1 << 14,
+                       chunk=chunk, exact=exact, cull_exact=True)
+    return _port_binned(b), dict(image_wh=image_wh, tile_wh=tile_wh,
+                                 chunk=chunk)
+
+
+@pytest.mark.parametrize("use_depth", [False, True])
+@pytest.mark.parametrize("exact", [True, False])
+def test_masked_plain_compositor_is_bit_equal(exact, use_depth):
+    """rasterize_plain skipping, as the kernel does, the pair-pixels of the
+    blocks the mask leaves out gives the same bits as without: the argument
+    that the new kernel changes no pixel. On the JAX binning's table the
+    mask leaves no kept pair-pixel out and skips most block visits; the
+    stats count the load (kept share, visits, run lengths)."""
+    pb, kw = _fixture_binned(exact)
+    rng = np.random.default_rng(1)
+    depth = (torch.from_numpy(rng.uniform(0.2, 1.0, (16, 2048))
+                              .astype(np.float32)) if use_depth
+             else torch.ones((16, 2048)))
+    st = {}
+    want = tr.rasterize_plain(pb, depth, use_depth=use_depth, exact=exact,
+                              stats=st, **kw)
+    got = tr.rasterize_plain(pb, depth, use_depth=use_depth, exact=exact,
+                             block_mask=True, **kw)
+    assert torch.equal(got, want)
+    assert st["missed"] == 0
+    assert 0 < st["kept"] < st["pair_pixels"] == st["pairs"] * 2048
+    assert 0 < st["visits"] < 0.6 * st["blocks"]
+    assert st["blocks"] == 32 * st["pairs"]
+    assert int(st["tile_pairs"].sum()) == st["pairs"]
+    assert bool((st["tile_pairs"] <= st["runs"]).all())
+
+
+@pytest.mark.parametrize("tile_wh", [(64, 32), (100, 20)])
+def test_masked_plain_compositor_is_bit_equal_on_adversarial_table(tile_wh):
+    """The same on the adversarial pairs, in both profiles' variants and
+    with the saturation-slot record, in the block and the flat warp
+    layout: colours and record to the bit."""
+    b, image_wh = adversarial_binned(5, tile_wh, exact=True)
+    n_px = tile_wh[0] * tile_wh[1]
+    depth = torch.from_numpy(np.random.default_rng(6).uniform(
+        0, 1, (4, n_px)).astype(np.float32))
+    kw = dict(image_wh=image_wh, tile_wh=tile_wh, chunk=128, use_depth=True,
+              emit_zcut=True)
+    for exact in (True, False):
+        want, wz = tr.rasterize_plain(b, depth, exact=exact, **kw)
+        got, gz = tr.rasterize_plain(b, depth, exact=exact, block_mask=True,
+                                     **kw)
+        assert torch.equal(got, want) and torch.equal(gz, wz)
+        assert float(want[:, 3].max()) > 0.5
+
+
+@pytest.mark.parametrize("tile_wh", [(64, 32), (64, 30), (48, 40), (256, 8),
+                                     (100, 20), (2048, 1)])
+def test_warp_layout_partitions_the_tile(tile_wh):
+    """Every pixel has one owner warp with at most 64 pixels, and its centre
+    lies in that warp's rectangle; 64x32 takes 32 blocks of 16x4."""
+    rects, warp = tr.warp_layout(tile_wh)
+    tw, th = tile_wh
+    p = torch.arange(tw * th)
+    u = (p % tw).float() + 0.5
+    v = (p // tw).float() + 0.5
+    r = rects[warp]
+    assert bool(((r[:, 0] <= u) & (u <= r[:, 1]) & (r[:, 2] <= v)
+                 & (v <= r[:, 3])).all())
+    assert int(torch.bincount(warp, minlength=32).max()) <= 64
+    assert int(warp.max()) < 32
+    if tile_wh == (64, 32):
+        assert torch.equal(rects[11], torch.tensor([48.5, 63.5, 8.5, 11.5]))

@@ -1,0 +1,122 @@
+"""Pair tables shared by the port's CPU and card compositor tests (imports
+no jax, so the card tests can use them on a host without it)."""
+
+import numpy as np
+import torch
+
+from gswt_renderer_tpu_torch.ops import binning as tbin
+from gswt_renderer_tpu_torch.ops import raster as tr
+
+
+def adversarial_pairs(seed, n_per_kind=64):
+    """(cx, cy, qa, qb, qc) of pairs meant to break a block mask, relative
+    to a tile whose origin is (0, 0): needle-thin and edge-on conics,
+    sub-pixel and tile-sized splats, centres off the tile, quadratics that
+    are not definite (indefinite, negative, zero) and pairs whose peak sits
+    just above or below the cutoff within a block."""
+    rng = np.random.default_rng(seed)
+    n = n_per_kind
+    kinds = []
+
+    def centres(lo=-40.0, hi=104.0):
+        return rng.uniform(lo, hi, n), rng.uniform(lo, hi - 40.0, n)
+
+    def rot(l1, l2):  # Q = R diag(l1, l2) R^T at random angles
+        th = rng.uniform(0, np.pi, n)
+        c, s = np.cos(th), np.sin(th)
+        return (l1 * c * c + l2 * s * s, (l1 - l2) * c * s,
+                l1 * s * s + l2 * c * c)
+
+    # needle-thin at random angles: eigenvalues 1e-6 .. 1e-4 and 0.5 .. 50
+    kinds.append((*centres(), *rot(10 ** rng.uniform(-6, -4, n),
+                                   10 ** rng.uniform(-0.3, 1.7, n))))
+    # edge-on: |qb| within 1e-7 .. 1e-3 of sqrt(qa qc) (barely definite)
+    qa, qc = 10 ** rng.uniform(-2, 1, n), 10 ** rng.uniform(-2, 1, n)
+    qb = np.sign(rng.uniform(-1, 1, n)) * np.sqrt(qa * qc) * (
+        1.0 - 10 ** rng.uniform(-7, -3, n))
+    kinds.append((*centres(), qa, qb, qc))
+    # sub-pixel: extents 0.02 .. 0.5 px
+    kinds.append((*centres(-2.0, 66.0), *rot(10 ** rng.uniform(1, 4, n),
+                                           10 ** rng.uniform(1, 4, n))))
+    # tile-sized and larger, centres far off the tile
+    kinds.append((*centres(-300.0, 364.0),
+                  *rot(10 ** rng.uniform(-5, -3, n),
+                       10 ** rng.uniform(-5, -3, n))))
+    # not definite: indefinite, negative, zero, one zero eigenvalue
+    q = [rot(rng.uniform(-1, 1, n), -10 ** rng.uniform(-3, 0, n)),
+         (-10 ** rng.uniform(-3, 0, n), np.zeros(n), rng.uniform(-1, 1, n)),
+         (np.zeros(n), np.zeros(n), np.zeros(n)),
+         rot(np.zeros(n), 10 ** rng.uniform(-3, 0, n))]
+    for qa, qb, qc in q:
+        kinds.append((*centres(), qa, qb, qc))
+    cx, cy, qa, qb, qc = (np.concatenate(x).astype(np.float32)
+                          for x in zip(*kinds))
+    return cx, cy, qa, qb, qc
+
+
+def adversarial_table(seed, tile_wh, exact):
+    """A one-tile pair table of _adversarial_pairs (the fast profile's
+    Cholesky-quantized q when not exact), half of them with k5 moved so the
+    peak over the tile lands near the cutoff, and a few dead pairs."""
+    cx, cy, qa, qb, qc = (torch.from_numpy(x) for x in adversarial_pairs(
+        seed))
+    if not exact:
+        ok = (qa > 0) & (qa * qc - qb * qb > 0)
+        (fa, fb, fc), _ = tbin.quantize_payload(qa, qb, qc, (qa,) * 4)
+        qa, qb, qc = (torch.where(ok, f, x) for f, x in ((fa, qa), (fb, qb),
+                                                          (fc, qc)))
+    n = cx.shape[0]
+    rng = np.random.default_rng(seed + 1)
+    one = torch.ones(n)
+    key = torch.zeros(n, dtype=torch.int64)
+    dead = torch.from_numpy(rng.random(n) < 0.05)
+    table = tbin.build_pair_table(
+        key, dead, cx, cy, qa, qb, qc, torch.from_numpy(
+            rng.uniform(0, 1, n).astype(np.float32)),
+        one * 0.5, one * 0.25, one * 0.75,
+        torch.where(dead, 0.0, 0.6 * one), ntx=1, n_tiles=1, tile_wh=tile_wh)
+    # the peak of e over the tile's pixel centres, moved to just around the
+    # cutoff for every other pair (what a mask's margin has to survive)
+    mono = tr._pixel_monomials(*tile_wh, "cpu")
+    e = tr._exponent(table[:6], mono)
+    shift = torch.from_numpy(rng.uniform(-0.05, 0.05, n).astype(np.float32))
+    near = (torch.arange(n) % 2 == 0) & ~dead & torch.isfinite(e.amax(1))
+    table[5] = torch.where(near, table[5] + (tr.CUTOFF - e.amax(1)) + shift,
+                           table[5])
+    return table
+
+
+def adversarial_binned(seed, tile_wh, grid=(2, 2), *, exact=True, chunk=128):
+    """A binned table (bin_pairs' layout) over grid[0] x grid[1] tiles,
+    each tile's run an adversarial_table of its own (without the pairs
+    whose exponent passes 0 somewhere: no splat has g > 1), its runs
+    starting off chunk boundaries. Row 12 is the slot. Returns (binned,
+    image_wh)."""
+    tw, th = tile_wh
+    rng = np.random.default_rng(seed)
+    mono = tr._pixel_monomials(tw, th, "cpu")
+    cols, rs, re_ = [], [], []
+    n = 3  # a few dead columns before the first run
+    cols.append(torch.zeros((16, n)))
+    for t in range(grid[0] * grid[1]):
+        tab = adversarial_table(seed * 10 + t, tile_wh, exact)
+        tab = tab[:, tr._exponent(tab[:6], mono).amax(1) <= 0.0]
+        tab[6] = torch.from_numpy(rng.uniform(0, 1, tab.shape[1])
+                                  .astype(np.float32))
+        cols.append(tab)
+        rs.append(n)
+        n += tab.shape[1]
+        re_.append(n)
+    table = torch.cat(cols, 1)
+    dead = torch.zeros(table.shape[1], dtype=torch.bool)
+    dead[:3] = True
+    pad = -(-n // chunk) * chunk - n
+    table = torch.cat([table, torch.zeros((16, pad))], 1)
+    dead = torch.cat([dead, torch.ones(pad, dtype=torch.bool)])
+    table[5] = torch.where(dead, -1e30, table[5])
+    table[11] = torch.where(dead, -torch.inf, table[11])
+    table[12] = torch.arange(table.shape[1], dtype=torch.float32)
+    binned = dict(table=table.contiguous(),
+                  range_start=torch.tensor(rs, dtype=torch.int32),
+                  range_end=torch.tensor(re_, dtype=torch.int32))
+    return binned, (grid[0] * tw, grid[1] * th)
