@@ -20,9 +20,15 @@ Phases, each printing its own line; any failure raises (non-zero exit):
    random one and on the full-config frame's pairs against the proxy's
    depth, and in the fast variant on the fast frame's own pair table under
    its proxy depth, with the saturation-slot record EQUAL; triangle raster
-   z bit-equal where both hit and attributes <= 1e-5 relative; bilinear
-   sampler bit-equal, mip sampler <= 1e-6, the last two at full and at the
-   fast profile's half resolution), timed with CUDA events beside its bound
+   (its entry kernel and its fold) z and hit mask bit-equal and attributes
+   <= 1e-5 relative, on adversarial triangles and at full and at the fast
+   profile's half resolution, with its load ([load] trirast: run lengths,
+   chunks per tile, pair-pixels in the bbox, inside, in the warp blocks the
+   mask keeps; failing if the mask would leave out a hit), its covered-only
+   bound and its longest run alone, the fold alone against its plain
+   version; bilinear sampler bit-equal, mip sampler <= 1e-6 at both
+   resolutions, by events, by its own device time and by the wrapper's
+   host time per call), timed with CUDA events beside its bound
    and, where one exists, a library call (the bilinear sampler and
    grid_sample also by their own device time in one profiler window); for
    the compositor also the load it carries (the share of composited
@@ -84,7 +90,9 @@ RASTER_ROWS = 11
 # per pair-pixel work of the triangle raster loop (csrc/trirast.cu): three
 # plane evaluations (b0, b1, z) of two multiplies and two adds, and two
 # subtractions for b2; the attribute planes are evaluated only for a pair
-# that is its pixel's nearest so far and are not counted
+# that is its pixel's nearest so far and are not counted. Its bound counts
+# this work on every pair-pixel; the covered-only term printed beside it
+# counts it on the pair-pixels of the warp blocks the kernel's mask keeps.
 TRIRAST_FP32_OPS = 14
 
 # per channel, every variant: the plain version walks a chunk's pairs in the
@@ -260,7 +268,8 @@ def phase_profile(torch, eng, fp, label, n: int = 4):
     # host's enqueue rate
     for e in kernels_:
         if any(k in e.key for k in ("block_gather_kernel", "raster_kernel",
-                                    "trirast_kernel", "bilinear_kernel",
+                                    "trirast_kernel", "trirast_fold_kernel",
+                                    "bilinear_kernel",
                                     "mip_trilinear_kernel")):
             print(f"{tag} own kernel "
                   f"{per_frame(e, 'self_cuda_time_total'):8.4f} ms/frame "
@@ -576,47 +585,128 @@ def main():
     ptile = (r.cfg.proxy_tile_w, r.cfg.proxy_tile_h)
     p_n_proxy = ptile[0] * ptile[1]
 
-    def trirast_check(wh):
-        """The triangle raster on the bench proxy grid as the frame's camera
-        projects it onto a wh image."""
-        planes, ok, bbox = proxy.map_grid_planes(
-            cam_d, scene_d, wh, r.hm4, r.height_map_wh, r.proxy_verts,
-            r.proxy_tris, surface_type=surface,
-            height_offset=float(rcfg.proxy_height))
-        rows, t_rs, t_re, n_tri_pairs = trirast.bin_triangles(
-            planes, bbox, ok, image_wh=wh, tile_wh=ptile)
-        tri_kw = dict(image_wh=wh, tile_wh=ptile, chunk=128)
+    def tri_load(label, rows, t_rs, t_re, tri_kw, sorted_key=None,
+                 sorted_tri=None, bbox=None):
+        """The plain raster with the kernel's block mask against the plain
+        spec (bit-equal, on the card), and the load it carries. Fails if
+        the mask would leave out a pair-pixel that hits."""
+        st = {}
+        spec = trirast.rasterize_triangles_plain(rows, t_rs, t_re, **tri_kw)
+        masked = trirast.rasterize_triangles_plain(
+            rows, t_rs, t_re, block_mask=True, stats=st, **tri_kw)
+        split = trirast.rasterize_split_plain(rows, t_rs, t_re, **tri_kw)
+        if not (torch.equal(masked, spec) and torch.equal(split, spec)):
+            raise RuntimeError(f"trirast {label}: the masked or the split "
+                               f"plain raster is not the plain spec")
+        if st["missed"]:
+            raise RuntimeError(f"trirast {label}: the block mask leaves out "
+                               f"{st['missed']} pair-pixels that hit")
+        runs = st["runs"][st["runs"] > 0].double()
+        chunks = st["chunks"]
+        rq = torch.quantile(runs, torch.tensor([0.5, 0.99], device="cuda",
+                                               dtype=torch.float64))
+        pp = st["pair_pixels"]
+        in_bbox = ""
+        if bbox is not None:
+            # pixel centres of each pair's tile inside its triangle's bbox
+            tw_, th_ = tri_kw["tile_wh"]
+            ntx_ = -(-tri_kw["image_wh"][0] // tw_)
+            ox = ((sorted_key % ntx_) * tw_).double()
+            oy = (torch.div(sorted_key, ntx_, rounding_mode="floor")
+                  * th_).double()
+            bx0, bx1, by0, by1 = (t[sorted_tri].double() for t in bbox)
+            nx = (torch.minimum(torch.floor(bx1 - 0.5), ox + (tw_ - 1))
+                  - torch.maximum(torch.ceil(bx0 - 0.5), ox) + 1)
+            ny = (torch.minimum(torch.floor(by1 - 0.5), oy + (th_ - 1))
+                  - torch.maximum(torch.ceil(by0 - 0.5), oy) + 1)
+            n_bb = int((nx.clamp(min=0) * ny.clamp(min=0)).sum())
+            in_bbox = f"in the bbox {n_bb / pp:.4f}, "
+        print(f"[load] trirast {label}: {st['pairs']} pairs on "
+              f"{int((st['runs'] > 0).sum())} of {st['runs'].numel()} tiles, "
+              f"run length median {rq[0]:.0f}, p99 {rq[1]:.0f}, max "
+              f"{runs.max():.0f}; chunks per tile max {int(chunks.max())}, "
+              f"{int((chunks > 1).sum())} tiles of several, "
+              f"{int(chunks.sum())} entries; of {pp} pair-pixels "
+              f"{in_bbox}inside the triangle {st['inside'] / pp:.4f}, hits "
+              f"{st['hits'] / pp:.4f}, in the warp blocks the mask keeps "
+              f"{st['covered'] / pp:.4f}; (pair, block) visits "
+              f"{st['visits']} of {st['blocks']} "
+              f"({st['visits'] / max(st['blocks'], 1):.4f}), missed hits "
+              f"{st['missed']}; masked and split plain rasters bit-equal to "
+              f"the spec")
+        return st
+
+    def trirast_equal(label, rows, t_rs, t_re, tri_kw):
+        """The kernels against the plain spec: (kernel output, max abs
+        diff)."""
         k_out = trirast.rasterize_pair_rows(rows, t_rs, t_re, **tri_kw)
         p_out = trirast.rasterize_triangles_plain(rows, t_rs, t_re, **tri_kw)
         torch.cuda.synchronize()
         both = (k_out[:, 0] < 1.0) & (p_out[:, 0] < 1.0)
         hit_differs = int(((k_out[:, 0] < 1.0) != (p_out[:, 0] < 1.0)).sum())
-        z_equal = bool(torch.equal(k_out[:, 0][both], p_out[:, 0][both]))
+        z_equal = bool(torch.equal(k_out[:, 0], p_out[:, 0]))
         a_err = (k_out[:, 1:] - p_out[:, 1:]).abs()
         a_ok = bool((a_err <= TRIRAST_ATTR_RTOL * p_out[:, 1:].abs()
                      + 1e-7).all())
         tri_err = float((k_out - p_out).abs().amax())
-        print(f"[kernel] trirast {wh[0]}x{wh[1]}: {int(ok.sum())} triangles, "
-              f"{n_tri_pairs} pairs on {k_out.shape[0]} tiles: hit differs "
-              f"on {hit_differs} px, z bit-equal {z_equal}, max abs diff "
-              f"{tri_err:.3e}, coverage "
-              f"{float((k_out[:, 0] < 1.0).float().mean()):.3f}")
+        print(f"[kernel] trirast {label}: {rows.shape[1]} pairs on "
+              f"{k_out.shape[0]} tiles: hit differs on {hit_differs} px, z "
+              f"bit-equal {z_equal} ({int(both.sum())} px hit), attributes "
+              f"within {TRIRAST_ATTR_RTOL:g} relative {a_ok}, max abs diff "
+              f"{tri_err:.3e}")
         if not (hit_differs == 0 and z_equal and a_ok
                 and torch.isfinite(k_out).all()):
             raise RuntimeError(
-                "trirast kernel disagrees with its plain version")
+                f"trirast {label}: the kernels disagree with the plain spec")
+        return k_out, tri_err
+
+    def trirast_check(wh):
+        """The triangle raster on the bench proxy grid as the frame's camera
+        projects it onto a wh image: the load, the kernels against the
+        plain spec, their times and bounds, the longest run alone."""
+        label = f"{wh[0]}x{wh[1]}"
+        planes, ok, bbox = proxy.map_grid_planes(
+            cam_d, scene_d, wh, r.hm4, r.height_map_wh, r.proxy_verts,
+            r.proxy_tris, surface_type=surface,
+            height_offset=float(rcfg.proxy_height))
+        rows, t_rs, t_re, n_tri_pairs, skey, stri = trirast.bin_triangles(
+            planes, bbox, ok, image_wh=wh, tile_wh=ptile, return_index=True)
+        tri_kw = dict(image_wh=wh, tile_wh=ptile, chunk=128)
+        st = tri_load(f"{label} ({int(ok.sum())} triangles)", rows, t_rs,
+                      t_re, tri_kw, skey, stri, bbox)
+        k_out, tri_err = trirast_equal(label, rows, t_rs, t_re, tri_kw)
+        ntx_, n_t = -(-wh[0] // ptile[0]), t_rs.shape[0]
+        # the two kernels apart: entries into the fold's scratch, then the
+        # fold, against the fold's plain version on the same scratch
+        scratch = trirast.fold_scratch(rows.shape[1], ptile, 128, "cuda")
+        entry_out = torch.full_like(k_out, float("nan"))
+
+        def launch(mode, out_):
+            trirast._launch(rows, t_rs, t_re, out_, scratch, ntx=ntx_,
+                            tile_wh=ptile, chunk=128, mode=mode)
+
+        launch(1, entry_out)
+        fold_out = entry_out.clone()
+        launch(2, fold_out)
+        fold_want = trirast.trirast_fold_plain(scratch, entry_out, t_rs,
+                                               t_re, chunk=128)
+        if not torch.equal(fold_out, fold_want):
+            raise RuntimeError(f"trirast_fold {label}: the kernel is not "
+                               f"its plain version")
+        multi = int((st["chunks"] > 1).sum())
         tri_bytes = 4 * (rows.numel() + t_rs.numel() + t_re.numel()
                          + k_out.numel())
+        tri_ops = n_tri_pairs * p_n_proxy * TRIRAST_FP32_OPS
         tri_bounds = (tri_bytes / HBM_BYTES_PER_S,
-                      n_tri_pairs * p_n_proxy * TRIRAST_FP32_OPS
-                      / FP32_OPS_PER_S)
+                      tri_ops / FP32_OPS_PER_S)
+        covered_ms = st["covered"] * TRIRAST_FP32_OPS / FP32_OPS_PER_S * 1e3
         tr = dict(
             name="trirast", route="cuda",
             source="gswt_renderer_tpu_torch/csrc/trirast.cu",
             replaces="gswt_renderer_tpu/ops/trirast.py:221",
             max_abs_err=tri_err,
             ms=_time_ms(torch, lambda: trirast.rasterize_pair_rows(
-                rows, t_rs, t_re, **tri_kw), 20),
+                rows, t_rs, t_re, **tri_kw), 50),
             plain_ms=_time_ms(
                 torch, lambda: trirast.rasterize_triangles_plain(
                     rows, t_rs, t_re, **tri_kw), 2),
@@ -625,14 +715,101 @@ def main():
             bound_by=("bytes" if tri_bounds[0] >= tri_bounds[1]
                       else "operations"),
         )
-        print(f"[kernel] trirast {wh[0]}x{wh[1]}: {tr['ms']:.4f} ms (plain "
-              f"{tr['plain_ms']:.3f}, bound {tr['bound_ms']:.4f} by "
-              f"{tr['bound_by']}: bytes {tri_bounds[0] * 1e3:.4f}, "
-              f"operations {tri_bounds[1] * 1e3:.4f})")
-        return tr
+        # the fold: the partials of the multi-chunk tiles' entries read
+        # once, their tiles written once, the ranges
+        n_multi_entries = int(st["chunks"][st["chunks"] > 1].sum())
+        fold_bytes = 4 * (5 * p_n_proxy * (n_multi_entries + multi)
+                          + 2 * n_t)
+        fd = dict(
+            name="trirast_fold", route="cuda",
+            source="gswt_renderer_tpu_torch/csrc/trirast.cu",
+            replaces="gswt_renderer_tpu/ops/trirast.py:221",
+            max_abs_err=0.0,
+            ms=_time_ms(torch, lambda: launch(2, fold_out), 50),
+            plain_ms=_time_ms(torch, lambda: trirast.trirast_fold_plain(
+                scratch, entry_out, t_rs, t_re, chunk=128), 5),
+            library_ms=None,  # no single PyTorch call folds the partials
+            bound_ms=fold_bytes / HBM_BYTES_PER_S * 1e3,
+            bound_by="bytes",
+        )
+        entries_ms = _time_ms(torch, lambda: launch(1, entry_out), 50)
+        # own device time of each kernel in one profiler window
+        from torch.profiler import ProfilerActivity, profile
+        n_own = 20
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_own):
+                trirast.rasterize_pair_rows(rows, t_rs, t_re, **tri_kw)
+            torch.cuda.synchronize()
+        own = {"trirast_kernel": 0.0, "trirast_fold_kernel": 0.0}
+        for ev in prof.key_averages():
+            t = getattr(ev, "self_device_time_total", None)
+            if t is None:
+                t = getattr(ev, "self_cuda_time_total", 0.0)
+            for key in own:
+                if key in ev.key:
+                    own[key] += t / 1e3 / n_own
+        # the longest run alone: one tile's entries and its fold
+        runs = t_re - t_rs
+        top = int(torch.argmax(runs))
+        keep = torch.arange(n_t, device="cuda") == top
+        a_rs = torch.where(keep, t_rs, 0).int().contiguous()
+        a_re = torch.where(keep, t_re, 0).int().contiguous()
+        alone_ms = _time_ms(torch, lambda: trirast.rasterize_pair_rows(
+            rows, a_rs, a_re, **tri_kw), 50)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_own):
+                trirast.rasterize_pair_rows(rows, a_rs, a_re, **tri_kw)
+            torch.cuda.synchronize()
+        alone_own = sum(
+            getattr(ev, "self_device_time_total",
+                    getattr(ev, "self_cuda_time_total", 0.0))
+            for ev in prof.key_averages() if "trirast" in ev.key) / 1e3 / n_own
+        # the wrapper's host time per call: 200 calls enqueued without a
+        # synchronize (the queue does not fill), host clock
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            trirast.rasterize_pair_rows(rows, t_rs, t_re, **tri_kw)
+        host_ms = (time.perf_counter() - t0) * 1e3 / 200
+        torch.cuda.synchronize()
+        # the C entry alone, its arguments built once: the launches' own
+        # host cost, the rest of host_ms being the Python wrapper's
+        c_args = (rows.data_ptr(), rows.shape[1], t_rs.data_ptr(),
+                  t_re.data_ptr(), fold_out.data_ptr(), scratch.data_ptr(),
+                  n_t, ntx_, ptile[0], ptile[1], 128, 3,
+                  kernels.stream_ptr(fold_out))
+        t0 = time.perf_counter()
+        for _ in range(200):
+            trirast._entry(*c_args)
+        launch_ms = (time.perf_counter() - t0) * 1e3 / 200
+        torch.cuda.synchronize()
+        print(f"[kernel] trirast {label}: {tr['ms']:.4f} ms by events "
+              f"(entries {entries_ms:.4f} + fold {fd['ms']:.4f} apart), "
+              f"wrapper host time {host_ms:.4f} ms per call (the C entry "
+              f"alone {launch_ms:.4f}); own "
+              f"device time entries {own['trirast_kernel']:.4f}, fold "
+              f"{own['trirast_fold_kernel']:.4f} ms; plain "
+              f"{tr['plain_ms']:.3f}; bound {tr['bound_ms']:.4f} by "
+              f"{tr['bound_by']}: bytes {tri_bounds[0] * 1e3:.4f}, every "
+              f"pair-pixel's operations {tri_bounds[1] * 1e3:.4f}, "
+              f"covered-only operations (the pair-pixels of the warp blocks "
+              f"the mask keeps) {covered_ms:.5f}; fold bound "
+              f"{fd['bound_ms']:.4f} (bytes), plain fold "
+              f"{fd['plain_ms']:.3f}")
+        print(f"[kernel] trirast {label} on the longest run alone "
+              f"({int(runs[top])} pairs, tile {top}, "
+              f"{int(st['chunks'][top])} chunks): {alone_ms:.4f} ms by "
+              f"events, own device time {alone_own:.4f} ms (entries and "
+              f"fold), against the whole raster's {tr['ms']:.4f} by events "
+              f"and {own['trirast_kernel'] + own['trirast_fold_kernel']:.4f} "
+              f"own")
+        return tr, fd
 
     def mip_check(wh):
-        """The mip pyramid sampler at a wh proxy pass's own u, v, rho."""
+        """The mip pyramid sampler at a wh proxy pass's own u, v, rho: the
+        kernel on the Renderer's interleaved texels against the plain spec
+        on the planes; its time by events, its own device time, and the
+        wrapper's host time per call."""
         n_s = wh[0] * wh[1]
         _, u_px, v_px, _, hit_px, _ = proxy.raster_map_grid(
             cam_d, scene_d, wh, r.hm4, r.height_map_wh, r.proxy_verts,
@@ -642,15 +819,24 @@ def main():
                                      float(r.proxy_wh[1]))
         pyr_meta, l_min = r.proxy_pyr_meta
         mip_args = (r.proxy_pyr, pyr_meta, l_min, u_px, v_px, rho_px)
-        k_out = texsample.factored_mip_trilinear(*mip_args)
+        texels = r.proxy_pyr_texels
+
+        def kernel():
+            return texsample.factored_mip_trilinear(*mip_args, texels=texels)
+
+        k_out = kernel()
         p_out = texsample.factored_mip_trilinear_plain(*mip_args)
+        t_out = texsample.factored_mip_trilinear_texels_plain(
+            texels, 3, *mip_args[1:])
         mip_err = float((k_out - p_out).abs().amax())
         print(f"[kernel] mip_trilinear {wh[0]}x{wh[1]}: planes "
-              f"{tuple(r.proxy_pyr.shape)} l_min {l_min}, {len(pyr_meta)} "
-              f"levels at {n_s} samples "
+              f"{tuple(r.proxy_pyr.shape)}, texels {tuple(texels.shape)}, "
+              f"l_min {l_min}, {len(pyr_meta)} levels at {n_s} samples "
               f"({float(hit_px.float().mean()):.3f} on the ground): max abs "
-              f"diff {mip_err:.3e}")
-        if not (mip_err <= SAMPLER_TOL and torch.isfinite(k_out).all()):
+              f"diff {mip_err:.3e}; the texel plain form bit-equal to the "
+              f"spec {torch.equal(t_out, p_out)}")
+        if not (mip_err <= SAMPLER_TOL and torch.isfinite(k_out).all()
+                and torch.equal(t_out, p_out)):
             raise RuntimeError(
                 "mip_trilinear kernel disagrees with its plain version")
         mp = dict(
@@ -658,24 +844,81 @@ def main():
             source="gswt_renderer_tpu_torch/csrc/miptrilinear.cu",
             replaces="gswt_renderer_tpu/ops/texsample.py:322",
             max_abs_err=mip_err,
-            ms=_time_ms(torch, lambda: texsample.factored_mip_trilinear(
-                *mip_args), 50),
+            ms=_time_ms(torch, kernel, 200),
             plain_ms=_time_ms(
                 torch,
                 lambda: texsample.factored_mip_trilinear_plain(*mip_args), 3),
             library_ms=None,  # no single PyTorch call samples a packed mip chain
-            # planes (bf16), u, v and rho read once; [3, P] written once
-            bound_ms=(2 * r.proxy_pyr.numel() + 4 * 3 * n_s + 4 * 3 * n_s)
+            # texels (8 B each), u, v and rho read once; [3, P] written once
+            bound_ms=(texels.numel() * 2 + 4 * 3 * n_s + 4 * 3 * n_s)
             / HBM_BYTES_PER_S * 1e3,
             bound_by="bytes",
         )
-        print(f"[kernel] mip_trilinear {wh[0]}x{wh[1]}: {mp['ms']:.4f} ms "
-              f"(plain {mp['plain_ms']:.3f}, bound {mp['bound_ms']:.4f})")
+        # the wrapper's host time per call: 200 calls enqueued without a
+        # synchronize (the queue does not fill), host clock
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            kernel()
+        host_ms = (time.perf_counter() - t0) * 1e3 / 200
+        torch.cuda.synchronize()
+        out_ = torch.empty_like(k_out)
+        uvr = [t.contiguous() for t in (u_px, v_px, rho_px)]
+        c_args = (texels.data_ptr(), 3, texels.shape[0], texels.shape[1],
+                  texsample._mip_level_table(pyr_meta), len(pyr_meta),
+                  int(l_min), uvr[0].data_ptr(), uvr[1].data_ptr(),
+                  uvr[2].data_ptr(), n_s, out_.data_ptr(),
+                  kernels.stream_ptr(out_))
+        entry = texsample._mip_launch_fn()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            entry(*c_args)
+        launch_ms = (time.perf_counter() - t0) * 1e3 / 200
+        torch.cuda.synchronize()
+        from torch.profiler import ProfilerActivity, profile
+        n_own = 50
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_own):
+                kernel()
+            torch.cuda.synchronize()
+        own = 0.0
+        for ev in prof.key_averages():
+            if "mip_trilinear_kernel" in ev.key:
+                t = getattr(ev, "self_device_time_total", None)
+                if t is None:
+                    t = getattr(ev, "self_cuda_time_total", 0.0)
+                own += t / 1e3 / n_own
+        if not own > 0:
+            raise RuntimeError("the profiler saw no mip_trilinear kernel")
+        print(f"[kernel] mip_trilinear {wh[0]}x{wh[1]}: own device time "
+              f"{own:.4f} ms; by events {mp['ms']:.4f} ms; wrapper host time "
+              f"{host_ms:.4f} ms per call (the C entry alone "
+              f"{launch_ms:.4f}); plain {mp['plain_ms']:.3f}; bound "
+              f"{mp['bound_ms']:.4f}")
         return mp
 
+    def trirast_adversarial(chunk):
+        """The kernels against the plain spec on the adversarial triangles
+        of tests/torch_tables.py (slivers, vertices 1e4 px off-screen,
+        edges through pixel centres, near- and far-plane crossings, ties
+        across chunk boundaries, empty tiles)."""
+        sys.path.insert(0, os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "tests"))
+        from torch_tables import adversarial_triangles, binned_triangles
+        for seed in (0, 1):
+            rows, t_rs, t_re, _ = binned_triangles(
+                adversarial_triangles(seed), device="cuda")
+            kw = dict(image_wh=(384, 256), tile_wh=(64, 32), chunk=chunk)
+            tri_load(f"adversarial seed {seed}, chunk {chunk}", rows, t_rs,
+                     t_re, kw)
+            trirast_equal(f"adversarial seed {seed}, chunk {chunk}", rows,
+                          t_rs, t_re, kw)
+
     half_wh = (-(-width // 2), -(-height // 2))
+    trirast_adversarial(128)
+    trirast_adversarial(32)
     trirast_check(image_wh)
-    tr = trirast_check(half_wh)   # the main path's shape
+    tr, fd = trirast_check(half_wh)   # the main path's shape
     mip_check(image_wh)
     mp = mip_check(half_wh)       # the main path's shape
 
@@ -811,7 +1054,8 @@ def main():
     kernels.LAUNCHES.clear()
     exact_run = drive(eng, N_FRAMES_EXACT, "exact full-config")
     launches_exact = dict(kernels.LAUNCHES)
-    need(launches_exact, ("block_gather", "raster", "trirast", "bilinear"),
+    need(launches_exact, ("block_gather", "raster", "trirast", "trirast_fold",
+                          "bilinear"),
          N_FRAMES_EXACT, "exact full-config")
     if launches_exact.get("mip_trilinear", 0):
         raise RuntimeError("the exact-profile frame launched mip_trilinear: "
@@ -884,10 +1128,10 @@ def main():
     kernels.LAUNCHES.clear()
     fast_run = drive(eng, N_FRAMES, "fast full-config", alpha_share=0.02)
     launches = dict(kernels.LAUNCHES)
-    per_frame = ("block_gather", "raster", "trirast", "bilinear",
-                 "mip_trilinear")
+    per_frame = ("block_gather", "raster", "trirast", "trirast_fold",
+                 "bilinear", "mip_trilinear")
     need(launches, per_frame, N_FRAMES, "fast full-config")
-    for k in (bg, tr, bl, mp):
+    for k in (bg, tr, fd, bl, mp):
         k["launches"] = launches[k["name"]]
     rf["launches"] = launches["raster"]
     report("fast full-config", fast_run, launches)
@@ -1227,7 +1471,7 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: d[k] for k in keys}
-                                  for d in [bg, rs, rf, rz, tr, bl, mp]
+                                  for d in [bg, rs, rf, rz, tr, fd, bl, mp]
                                   + new_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -25,46 +25,81 @@
 // - a texel times a bf16 weight is exact in f32; sums are f32; the division
 //   by 255 is one multiply at the end.
 //
+// The kernel reads the texel-interleaved copy of the planes
+// (ops/texsample.py interleave_pyramid: [Hp, Wp, 4] bf16, channels side by
+// side, zero-padded), so one 8-byte load per tap fetches every channel.
+//
 // Bound: bytes. 12 B of (u, v, rho) in and 4 C bytes out per sample; the
-// planes (C Hp Wp 2 bytes, read once) stay in L1/L2. Design: one thread per
-// sample, coalesced coordinate loads and output stores, taps through the
-// read-only cache, the level table passed by value. Every multiply and add is
-// rounded on its own in the order of the plain PyTorch version.
+// texels (8 Hp Wp bytes, read once) stay in L1/L2. What the first kernel
+// paid above that was per-sample work: 48 two-byte loads (4 rows x 4
+// columns x 3 channel planes) and four IEEE divisions for the wrap. Design:
+// one thread per sample, coalesced coordinate loads and output stores, one
+// 8-byte load per distinct tap through the read-only cache (16 at most), the
+// level table passed by value, the channel count a template parameter, the
+// tap merges short-cut when the four taps are distinct (the usual case). The Repeat wrap floor(x0f / n) is taken in
+// integers where that is provably the float result (|x0f| < 2^24 and
+// n <= 2^12: the quotient's rounding cannot cross an integer), and in
+// floats otherwise. Every multiply and add is rounded on its own in the
+// order of the plain PyTorch version.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxLevels = 16;
-constexpr int kMaxCh = 4;
+constexpr int kMaxCh = 4;  // bf16 channels per texel: 8 bytes
+// the integer wrap is exact below these (see the header)
+constexpr float kIntWrapCoord = 16777216.0f;  // 2^24
+constexpr int kIntWrapSize = 4096;           // 2^12
 
 struct Levels {
   int w[kMaxLevels], h[kMaxLevels], ro[kMaxLevels], co[kMaxLevels];
+  float inv_w[kMaxLevels], inv_h[kMaxLevels];  // 1/w, 1/h (estimates)
 };
 
 // one axis of one level: the two wrapped tap positions (offset included) and
 // the fraction
-__device__ __forceinline__ void axis_taps(float coord, int size, int off,
-                                          int* i0, int* i1, float* t) {
+__device__ __forceinline__ void axis_taps(float coord, int size, float inv,
+                                          int off, int* i0, int* i1,
+                                          float* t) {
   const float n = (float)size;
   const float x = __fsub_rn(__fmul_rn(coord, n), 0.5f);
   const float x0f = floorf(x);
   *t = __fsub_rn(x, x0f);
-  // float modulo wrap (Repeat)
-  const float x0 = __fsub_rn(x0f, __fmul_rn(floorf(__fdiv_rn(x0f, n)), n));
-  float x1 = __fadd_rn(x0, 1.0f);
-  if (x1 >= n) x1 = 0.0f;
-  const float o = (float)off;
-  *i0 = (int)__fadd_rn(o, x0);
-  *i1 = (int)__fadd_rn(o, x1);
+  int x0;
+  if (fabsf(x0f) < kIntWrapCoord && size <= kIntWrapSize) {
+    // exact: the float modulo's value. The quotient from the reciprocal is
+    // off by at most one (|x0f / n| < 2^23 for n >= 2; 1/1 is exact), which
+    // one correction of the remainder undoes
+    const int xi = (int)x0f;
+    int r = xi - (int)floorf(x0f * inv) * size;
+    if (r < 0) r += size;
+    else if (r >= size) r -= size;
+    x0 = r;
+  } else {  // float modulo wrap (Repeat)
+    x0 = (int)__fsub_rn(x0f, __fmul_rn(floorf(__fdiv_rn(x0f, n)), n));
+  }
+  const int x1 = x0 + 1 >= size ? 0 : x0 + 1;
+  *i0 = off + x0;
+  *i1 = off + x1;
 }
 
 // for each of 4 taps: the f32 sum, in tap order, of every tap weight at its
 // index, and whether it is the first tap at that index
 __device__ __forceinline__ void merge_taps(const int* idx, const float* w,
                                            float* summed, bool* first) {
+  if (idx[0] != idx[1] && idx[0] != idx[2] && idx[0] != idx[3] &&
+      idx[1] != idx[2] && idx[1] != idx[3] && idx[2] != idx[3]) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {  // four distinct taps: nothing to merge
+      summed[k] = __fadd_rn(0.0f, w[k]);
+      first[k] = true;
+    }
+    return;
+  }
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     float s = 0.0f;
@@ -85,9 +120,18 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+__device__ __forceinline__ float bf16_lo(unsigned w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(unsigned w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// kCh: the channels sampled (the texel holds kMaxCh)
+template <int kCh>
 __global__ void __launch_bounds__(kThreads)
-mip_trilinear_kernel(const unsigned short* __restrict__ planes, int n_ch,
-                     int hp, int wp, Levels lv, int n_kept, int l_min,
+mip_trilinear_kernel(const uint2* __restrict__ texels, int hp,
+                     int wp, Levels lv, int n_kept, int l_min,
                      const float* __restrict__ us, const float* __restrict__ vs,
                      const float* __restrict__ rhos, long long p_n,
                      float* __restrict__ out) {
@@ -104,15 +148,15 @@ mip_trilinear_kernel(const unsigned short* __restrict__ planes, int n_ch,
   int cols[4], rows[4];
   float wc[4], wr[4];
   float tx, ty;
-  axis_taps(u, lv.w[l0], lv.co[l0], &cols[0], &cols[1], &tx);
-  axis_taps(v, lv.h[l0], lv.ro[l0], &rows[0], &rows[1], &ty);
+  axis_taps(u, lv.w[l0], lv.inv_w[l0], lv.co[l0], &cols[0], &cols[1], &tx);
+  axis_taps(v, lv.h[l0], lv.inv_h[l0], lv.ro[l0], &rows[0], &rows[1], &ty);
   const float lw0 = __fsub_rn(1.0f, frac);
   wc[0] = __fmul_rn(__fsub_rn(1.0f, tx), lw0);
   wc[1] = __fmul_rn(tx, lw0);
   wr[0] = __fsub_rn(1.0f, ty);
   wr[1] = ty;
-  axis_taps(u, lv.w[l1], lv.co[l1], &cols[2], &cols[3], &tx);
-  axis_taps(v, lv.h[l1], lv.ro[l1], &rows[2], &rows[3], &ty);
+  axis_taps(u, lv.w[l1], lv.inv_w[l1], lv.co[l1], &cols[2], &cols[3], &tx);
+  axis_taps(v, lv.h[l1], lv.inv_h[l1], lv.ro[l1], &rows[2], &rows[3], &ty);
   const float keep = l0 == l1 ? 0.0f : 1.0f;  // the duplicate-level fix
   wc[2] = __fmul_rn(__fsub_rn(1.0f, tx), frac);
   wc[3] = __fmul_rn(tx, frac);
@@ -124,7 +168,7 @@ mip_trilinear_kernel(const unsigned short* __restrict__ planes, int n_ch,
   merge_taps(cols, wc, wx, cfirst);
   merge_taps(rows, wr, wy, rfirst);
   // a non-finite or astronomically large uv (where the float modulo loses
-  // its integer) must not read outside the planes
+  // its integer) must not read outside the texels
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     cols[k] = min(max(cols[k], 0), wp - 1);
@@ -133,42 +177,48 @@ mip_trilinear_kernel(const unsigned short* __restrict__ planes, int n_ch,
 #pragma unroll
   for (int k = 0; k < 4; ++k) wx[k] = bf16_round(wx[k]);
 
-  float o[kMaxCh];
+  float o[kCh];
 #pragma unroll
-  for (int c = 0; c < kMaxCh; ++c) o[c] = 0.0f;
+  for (int c = 0; c < kCh; ++c) o[c] = 0.0f;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     if (!rfirst[r]) continue;
+    const uint2* row = texels + rows[r] * wp;  // hp wp < 2^31
+    float acc[kCh];
 #pragma unroll
-    for (int c = 0; c < kMaxCh; ++c) {
-      if (c >= n_ch) break;
-      const unsigned short* row =
-          planes + ((long long)c * hp + rows[r]) * wp;
-      float acc = 0.0f;
+    for (int c = 0; c < kCh; ++c) acc[c] = 0.0f;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        if (!cfirst[k]) continue;
-        const float texel =
-            __uint_as_float(((unsigned)__ldg(row + cols[k])) << 16);
-        acc = __fadd_rn(acc, __fmul_rn(texel, wx[k]));
-      }
-      o[c] = __fadd_rn(o[c], __fmul_rn(wy[r], acc));
+    for (int k = 0; k < 4; ++k) {
+      if (!cfirst[k]) continue;
+      const uint2 t = __ldg(row + cols[k]);  // every channel of the texel
+      const float texel[kMaxCh] = {bf16_lo(t.x), bf16_hi(t.x), bf16_lo(t.y),
+                                   bf16_hi(t.y)};
+#pragma unroll
+      for (int c = 0; c < kCh; ++c)
+        acc[c] = __fadd_rn(acc[c], __fmul_rn(texel[c], wx[k]));
     }
+#pragma unroll
+    for (int c = 0; c < kCh; ++c)
+      o[c] = __fadd_rn(o[c], __fmul_rn(wy[r], acc[c]));
   }
   const float inv255 = (float)(1.0 / 255.0);
 #pragma unroll
-  for (int c = 0; c < kMaxCh; ++c)
-    if (c < n_ch) out[(long long)c * p_n + p] = __fmul_rn(o[c], inv255);
+  for (int c = 0; c < kCh; ++c)
+    out[(long long)c * p_n + p] = __fmul_rn(o[c], inv255);
 }
 
 }  // namespace
 
-extern "C" int gswt_mip_trilinear(const void* planes, int n_ch, int hp, int wp,
+// texels: [hp, wp, 4] bf16 (8-byte aligned), the first n_ch channels of
+// each texel sampled
+extern "C" int gswt_mip_trilinear(const void* texels, int n_ch, int hp, int wp,
                                   const int* meta, int n_kept, int l_min,
                                   const void* us, const void* vs,
                                   const void* rhos, long long p_n, void* out,
                                   void* stream) {
-  if (n_ch <= 0 || n_ch > kMaxCh || n_kept <= 0 || n_kept > kMaxLevels)
+  if (n_ch <= 0 || n_ch > kMaxCh || n_kept <= 0 || n_kept > kMaxLevels ||
+      (uintptr_t)texels % 8 || hp <= 0 || wp <= 0 ||
+      (long long)hp * wp >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   Levels lv;
   for (int k = 0; k < kMaxLevels; ++k) {
@@ -177,13 +227,18 @@ extern "C" int gswt_mip_trilinear(const void* planes, int n_ch, int hp, int wp,
     lv.h[k] = meta[4 * s + 1];
     lv.ro[k] = meta[4 * s + 2];
     lv.co[k] = meta[4 * s + 3];
+    lv.inv_w[k] = 1.0f / (float)(lv.w[k] > 0 ? lv.w[k] : 1);
+    lv.inv_h[k] = 1.0f / (float)(lv.h[k] > 0 ? lv.h[k] : 1);
   }
   if (p_n > 0) {
     const unsigned blocks = (unsigned)((p_n + kThreads - 1) / kThreads);
-    mip_trilinear_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const unsigned short*)planes, n_ch, hp, wp, lv, n_kept, l_min,
-        (const float*)us, (const float*)vs, (const float*)rhos, p_n,
-        (float*)out);
+    auto kernel = n_ch == 1   ? mip_trilinear_kernel<1>
+                  : n_ch == 2 ? mip_trilinear_kernel<2>
+                  : n_ch == 3 ? mip_trilinear_kernel<3>
+                              : mip_trilinear_kernel<4>;
+    kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint2*)texels, hp, wp, lv, n_kept, l_min, (const float*)us,
+        (const float*)vs, (const float*)rhos, p_n, (float*)out);
   }
   return (int)cudaGetLastError();
 }

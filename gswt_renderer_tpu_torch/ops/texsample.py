@@ -20,7 +20,10 @@ the /255 happens last.
 On the card both are CUDA kernels (``csrc/bilinear.cu``,
 ``csrc/miptrilinear.cu``) in which every thread reads its own taps; on the
 CPU they are the plain PyTorch versions beside them, which do the same
-arithmetic in the same order.
+arithmetic in the same order. The pyramid kernel reads a texel-interleaved
+copy of the planes (``interleave_pyramid``, one 8-byte load per tap) and
+wraps in integers where that is exact;
+``factored_mip_trilinear_texels_plain`` is that form in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -33,6 +36,10 @@ import torch
 from . import kernels
 
 MAX_PYR_LEVELS = 16  # the CUDA kernel takes the level table by value
+MAX_MIP_CHANNELS = 4  # texels of the CUDA sampler: 4 bf16 (8 bytes)
+# the sampler's integer wrap is exact below these (see _wrap)
+_INT_WRAP_COORD = float(1 << 24)
+_INT_WRAP_SIZE = float(1 << 12)
 
 
 def _flat_f32(name, t, n=None, device=None):
@@ -150,13 +157,41 @@ def pack_pyramid(mips):
     return planes, tuple(meta), l_min
 
 
+def interleave_pyramid(planes):
+    """[C <= 4, Hp, Wp] -> [Hp, Wp, 4]: the pyramid texel-interleaved (the
+    channels of a texel side by side, zero-padded to 4), the CUDA sampler's
+    layout: one 8-byte load per tap fetches every channel of a bf16 texel.
+    Built once per texture (Renderer.set_proxy), never per frame."""
+    n_ch, hp, wp = planes.shape
+    if n_ch > MAX_MIP_CHANNELS:
+        raise ValueError(f"the CUDA sampler takes <= {MAX_MIP_CHANNELS} "
+                         f"channels")
+    out = torch.zeros((hp, wp, MAX_MIP_CHANNELS), dtype=planes.dtype,
+                      device=planes.device)
+    out[..., :n_ch] = planes.permute(1, 2, 0)
+    return out
+
+
 def _level_params(meta, l_i):
     """Per-pixel (w, h, ro, co) f32 of the kept level l_i."""
     tab = torch.tensor(meta, dtype=torch.float32, device=l_i.device)
     return tab[l_i].unbind(-1)
 
 
-def _tap_rows(meta, l_i, u, v, lw):
+def _wrap(x0f, n, int_wrap):
+    """Repeat wrap of the tap index floor(x) into [0, n): the float modulo
+    x0f - floor(x0f / n) n. With int_wrap, the integer modulo where that is
+    exact (|x0f| < 2^24 and n <= 2^12: the quotient then cannot round
+    across an integer, so both give the same value), as the kernel does."""
+    flt = x0f - torch.floor(x0f / n) * n
+    if not int_wrap:
+        return flt
+    small = (x0f.abs() < _INT_WRAP_COORD) & (n <= _INT_WRAP_SIZE)
+    xi = torch.where(small, x0f, 0.0).long()
+    return torch.where(small, (xi % n.long()).to(torch.float32), flt)
+
+
+def _tap_rows(meta, l_i, u, v, lw, int_wrap=False):
     """One level's taps: wrapped (col, w) x2 and (row, w) x2, with the
     level weight lw folded into the COLUMN weights (rows carry plain
     bilinear weights; the block-diagonal pack keeps levels separable)."""
@@ -167,11 +202,11 @@ def _tap_rows(meta, l_i, u, v, lw):
     y0f = torch.floor(y)
     tx = x - x0f
     ty = y - y0f
-    # float modulo wrap (Repeat)
-    x0 = x0f - torch.floor(x0f / w) * w
+    # modulo wrap (Repeat)
+    x0 = _wrap(x0f, w, int_wrap)
     x1 = x0 + 1.0
     x1 = torch.where(x1 >= w, 0.0, x1)
-    y0 = y0f - torch.floor(y0f / h) * h
+    y0 = _wrap(y0f, h, int_wrap)
     y1 = y0 + 1.0
     y1 = torch.where(y1 >= h, 0.0, y1)
     return [
@@ -197,8 +232,8 @@ def _merge_taps(idx, wts):
     return summed, first
 
 
-def factored_mip_trilinear_plain(planes, meta, l_min, u, v, rho):
-    """Plain PyTorch version of factored_mip_trilinear (same arguments)."""
+def _mip_plain(fetch, n_ch, meta, l_min, u, v, rho, int_wrap):
+    """The sampler over any texel layout: fetch(rows, cols) -> [C, P] f32."""
     n_kept = len(meta)
     shape = u.shape
     uf = u.reshape(-1)
@@ -209,8 +244,8 @@ def factored_mip_trilinear_plain(planes, meta, l_min, u, v, rho):
     l0 = torch.floor(lvl).long()
     frac = lvl - l0.to(torch.float32)
     l1 = torch.clamp(l0 + 1, max=n_kept - 1)
-    rows0 = _tap_rows(meta, l0, uf, vf, 1.0 - frac)
-    rows1 = _tap_rows(meta, l1, uf, vf, frac)
+    rows0 = _tap_rows(meta, l0, uf, vf, 1.0 - frac, int_wrap)
+    rows1 = _tap_rows(meta, l1, uf, vf, frac, int_wrap)
     # At the coarsest level l0 == l1: the column taps coincide and their
     # folded level weights sum correctly ((1-f)+f, with f exactly 0 there),
     # but the row taps carry plain bilinear weights -- accumulated twice
@@ -224,51 +259,97 @@ def factored_mip_trilinear_plain(planes, meta, l_min, u, v, rho):
     wxs = [w.to(torch.bfloat16).to(torch.float32) for w in wxs]
     rws = [r.long() for r in (rows0[4], rows0[6], rows1[4], rows1[6])]
     wys, rfirst = _merge_taps(rws, [rows0[5], rows0[7], rows1[5], rows1[7]])
-    out = torch.zeros((planes.shape[0], uf.shape[0]), dtype=torch.float32,
+    out = torch.zeros((n_ch, uf.shape[0]), dtype=torch.float32,
                       device=uf.device)
     for r in range(4):
         acc = torch.zeros_like(out)
         for c in range(4):
-            tex = planes[:, rws[r], cols[c]].to(torch.float32)
+            tex = fetch(rws[r], cols[c])
             acc = acc + torch.where(cfirst[c], tex * wxs[c], 0.0)
         out = out + torch.where(rfirst[r], wys[r] * acc, 0.0)
     out = out * (1.0 / 255.0)
-    return out.reshape((planes.shape[0],) + tuple(shape))
+    return out.reshape((n_ch,) + tuple(shape))
 
 
-def factored_mip_trilinear(planes, meta, l_min, u, v, rho):
+def factored_mip_trilinear_plain(planes, meta, l_min, u, v, rho):
+    """Plain PyTorch version of factored_mip_trilinear (same arguments)."""
+    return _mip_plain(lambda r, c: planes[:, r, c].to(torch.float32),
+                      planes.shape[0], meta, l_min, u, v, rho, False)
+
+
+def factored_mip_trilinear_texels_plain(texels, n_ch, meta, l_min, u, v,
+                                        rho):
+    """The CUDA sampler's form in plain PyTorch: taps read from the
+    interleaved copy (interleave_pyramid), wrapped in integers where that is
+    exact. Equal to the bit to factored_mip_trilinear_plain."""
+    return _mip_plain(
+        lambda r, c: texels[r, c, :n_ch].to(torch.float32).T, n_ch, meta,
+        l_min, u, v, rho, True)
+
+
+_mip_entry = None
+_mip_tables: dict = {}
+
+
+def _mip_launch_fn():
+    """The C entry, resolved once."""
+    global _mip_entry
+    if _mip_entry is None:
+        vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        _mip_entry = kernels.load("miptrilinear", gswt_mip_trilinear=[
+            vp, ci, ci, ci, ctypes.POINTER(ctypes.c_int), ci, ci,
+            vp, vp, vp, ll, vp, vp]).gswt_mip_trilinear
+    return _mip_entry
+
+
+def _mip_level_table(meta):
+    """The level table as the C entry takes it, built once per pyramid."""
+    tab = _mip_tables.get(meta)
+    if tab is None:
+        flat = [int(x) for lv in meta for x in lv]
+        tab = _mip_tables[meta] = (ctypes.c_int * len(flat))(*flat)
+    return tab
+
+
+def _sample_arg(name, t, p, dev):
+    if t.dtype != torch.float32 or t.device != dev or t.numel() != p:
+        raise ValueError(f"{name} must be float32 with {p} elements on {dev}")
+    return t if t.is_contiguous() else t.contiguous()
+
+
+def factored_mip_trilinear(planes, meta, l_min, u, v, rho, *, texels=None):
     """Trilinear Repeat mip sampling of a pack_pyramid chain.
 
     planes: [3, Hp, Wp] bf16; meta/l_min from pack_pyramid; u, v: [...] uv
     in texture-repeat units; rho: footprint in LEVEL-0 texels per pixel
     (levels below l_min clamp to l_min). Returns [3, ...] f32 rgb. CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+    tensors take the plain version; CUDA tensors launch the kernel, which
+    reads `texels`, the interleaved copy of the planes (interleave_pyramid,
+    built once per texture: the Renderer keeps one)."""
     if not planes.is_cuda:
         return factored_mip_trilinear_plain(planes, meta, l_min, u, v, rho)
-    if (planes.dtype != torch.bfloat16 or planes.dim() != 3
-            or not planes.is_contiguous()):
-        raise ValueError("planes must be a contiguous bfloat16 [C, Hp, Wp]")
+    n_ch, hp, wp = planes.shape
+    dev = planes.device
+    if (texels is None or texels.dtype != torch.bfloat16 or texels.shape != (
+            hp, wp, MAX_MIP_CHANNELS) or not texels.is_contiguous()
+            or texels.device != dev):
+        raise ValueError(f"texels must be a contiguous bfloat16 "
+                         f"[{hp}, {wp}, {MAX_MIP_CHANNELS}] on {dev}")
+    if not isinstance(meta, tuple):
+        meta = tuple(tuple(lv) for lv in meta)
     n_kept = len(meta)
     if not 1 <= n_kept <= MAX_PYR_LEVELS:
         raise ValueError(f"the CUDA sampler takes 1..{MAX_PYR_LEVELS} levels")
-    dev = planes.device
-    n_ch, hp, wp = planes.shape
-    shape = u.shape
-    uf = _flat_f32("u", u, device=dev)
-    vf = _flat_f32("v", v, uf.shape[0], dev)
-    rf = _flat_f32("rho", rho, uf.shape[0], dev)
-    p = uf.shape[0]
-    out = torch.empty((n_ch, p), dtype=torch.float32, device=dev)
-    flat = [int(x) for lv in meta for x in lv]
-    meta_c = (ctypes.c_int * len(flat))(*flat)
-    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib = kernels.load("miptrilinear", gswt_mip_trilinear=[
-        vp, ci, ci, ci, ctypes.POINTER(ctypes.c_int), ci, ci,
-        vp, vp, vp, ll, vp, vp])
-    rc = lib.gswt_mip_trilinear(
-        kernels.ptr(planes), n_ch, hp, wp, meta_c, n_kept, int(l_min),
-        kernels.ptr(uf), kernels.ptr(vf), kernels.ptr(rf), p,
-        kernels.ptr(out), kernels.stream_ptr(out))
+    p = u.numel()
+    uf = _sample_arg("u", u, p, dev)
+    vf = _sample_arg("v", v, p, dev)
+    rf = _sample_arg("rho", rho, p, dev)
+    out = torch.empty((n_ch,) + tuple(u.shape), dtype=torch.float32,
+                      device=dev)
+    rc = _mip_launch_fn()(
+        texels.data_ptr(), n_ch, hp, wp, _mip_level_table(meta), n_kept,
+        int(l_min), uf.data_ptr(), vf.data_ptr(), rf.data_ptr(), p,
+        out.data_ptr(), kernels.stream_ptr(out))
     kernels.LAUNCHES["mip_trilinear"] += 1
     kernels.check(rc, "mip_trilinear")
-    return out.reshape((n_ch,) + tuple(shape))
+    return out

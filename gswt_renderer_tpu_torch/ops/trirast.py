@@ -16,9 +16,19 @@ coefficients = 24 rows.
 Outputs per pixel: min depth + the winning triangle's (1/w, u/w, v/w,
 extra/w); callers resolve perspective division and texture sampling.
 
-On the card the raster is the CUDA kernel ``csrc/trirast.cu`` (one thread
-block per tile); on the CPU it is ``rasterize_triangles_plain``, a vectorised
-form of the same function over the (tile, chunk) worklist.
+A tile's run is taken in chunks that begin at global multiples of `chunk`,
+and a chunk replaces a pixel only where its nearest z is strictly below the
+pixel's so far: the result is the lexicographic minimum of (the chunk's z,
+its index) over the chunks that hit, carrying that chunk's own mean. So a
+run splits exactly at chunk boundaries. On the card (``csrc/trirast.cu``)
+every (tile, chunk) entry is a thread block of its own, whose warps skip
+the pairs that ``tri_block_mask`` shows cannot cover a pixel centre of
+their block; a second kernel, ``trirast_fold``, folds the entries of the
+tiles whose run crosses a chunk boundary. On the CPU the raster is
+``rasterize_triangles_plain``, which walks the chunks of every tile in
+order; ``rasterize_triangles_plain(block_mask=True)`` skips as the kernel
+does and ``rasterize_split_plain`` splits and folds as it does, both to the
+same bits.
 """
 
 from __future__ import annotations
@@ -30,11 +40,17 @@ import torch
 
 from . import kernels
 from .binning import build_worklist, expand_bboxes, grid_dims, tile_ranges
+from .raster import warp_layout
 
 N_PLANES = 8   # b0, b1, b2, z, 1/w, u/w, v/w, extra/w
 N_ROWS = N_PLANES * 3
 MAX_CHUNK = 256  # the CUDA kernel stages one chunk in shared memory
-MAX_TILE_PIXELS = 2048  # 256 threads x 8 pixels
+MAX_TILE_PIXELS = 2048  # 1024 threads x 2 pixels, in 32 warp blocks laid
+# out as the compositor's (ops/raster.py warp_layout)
+# the block mask's margin: 2^-20 of the magnitudes the kernel's f32 plane
+# evaluations sum (their rounding, b2's included, stays below 8 * 2^-24 of
+# them)
+_MASK_REL = 2.0 ** -20
 # worklist entries per step of the plain version: bounds its [B, C, P]
 # temporaries (16 x 128 x 2048 f32 = 16 MiB each on the proxy grid)
 _PLAIN_BATCH = 16
@@ -99,8 +115,178 @@ def _far_tiles(n_tiles, p_n, device):
     return tiles
 
 
+def tri_block_mask(blk, rects):
+    """The kernel's per-pair warp-block mask (csrc/trirast.cu
+    pair_reaches_block), with the same f64 operations in the same order.
+
+    blk: [24, ...] f32 pair rows; rects: [..., 32, 4] (broadcast
+    against the pairs' shape) each warp block's rectangle of pixel centres
+    in image coordinates (u0, u1, v0, v1), u0 > u1 for a block without
+    pixels. Returns [..., 32] bool: False only where no pixel centre of
+    the block can pass the kernel's f32 tests b0, b1, b2 >= 0 and
+    0 <= z < 1.
+
+    The planes are affine, so each one's extremes over the block lie at its
+    corners: the max of a u + b v + c takes u1 where a > 0, else u0 (and
+    likewise v). The products of f32 values are exact in f64. A plane whose
+    max plus a margin is below 0 fails at every pixel centre, as does z
+    whose min less the margin is >= 1. The margin is 2^-20 of the summed
+    magnitudes |a| u1 + |b| v1 + |c| (those of b0 and b1, plus 1, for the
+    barycentrics, b2 being 1 - b0 - b1 in f32; those of z, plus 1, for z),
+    above the f32 evaluation's rounding. A NaN or infinite plane keeps the
+    block."""
+    k = [t.double()[..., None] for t in blk[:12]]
+    a0, b0, c0, a1, b1, c1 = k[:6]
+    az, bz, cz = k[9:12]
+    u0, u1, v0, v1 = rects.double().unbind(-1)
+
+    def pmax(a, b, c):
+        return ((c + torch.where(a > 0.0, a * u1, a * u0))
+                + torch.where(b > 0.0, b * v1, b * v0))
+
+    def pmin(a, b, c):
+        return ((c + torch.where(a > 0.0, a * u0, a * u1))
+                + torch.where(b > 0.0, b * v0, b * v1))
+
+    def mag(a, b, c):
+        return (a.abs() * u1 + b.abs() * v1) + c.abs()
+
+    a2, b2, c2 = -(a0 + a1), -(b0 + b1), 1.0 - (c0 + c1)
+    mb = _MASK_REL * ((mag(a0, b0, c0) + mag(a1, b1, c1)) + 1.0)
+    mz = _MASK_REL * (mag(az, bz, cz) + 1.0)
+    out = ~((pmax(a0, b0, c0) + mb < 0.0) | (pmax(a1, b1, c1) + mb < 0.0)
+            | (pmax(a2, b2, c2) + mb < 0.0) | (pmax(az, bz, cz) + mz < 0.0)
+            | (pmin(az, bz, cz) - mz >= 1.0))
+    return out & (u0 <= u1)
+
+
+def tile_rects(tiles, tile_wh, ntx, rects):
+    """[B, 32, 4]: the warp blocks' rectangles (warp_layout's,
+    tile-local) moved to each tile's origin in image coordinates."""
+    tw, th = tile_wh
+    ox = ((tiles % ntx) * tw).to(torch.float32)
+    oy = (torch.div(tiles, ntx, rounding_mode="floor") * th).to(torch.float32)
+    return rects + torch.stack([ox, ox, oy, oy], dim=-1)[:, None, :]
+
+
+class _Entries:
+    """Evaluates (tile, chunk) entries of a pair table, each on its own, as
+    a thread block of the kernel does."""
+
+    def __init__(self, rows, rs, re_, *, image_wh, tile_wh, chunk,
+                 block_mask, stats):
+        self.rows, self.rs, self.re, self.chunk = rows, rs, re_, chunk
+        self.tile_wh = tile_wh
+        self.ntx = grid_dims(image_wh, tile_wh)[0]
+        tw, _ = tile_wh
+        dev = rows.device
+        i = torch.arange(tw * tile_wh[1], device=dev)
+        self.lx = (i % tw).to(torch.float32)
+        self.ly = torch.div(i, tw, rounding_mode="floor").to(torch.float32)
+        self.lane = torch.arange(chunk, device=dev)
+        self.block_mask = block_mask
+        self.stats = stats
+        if block_mask or stats is not None:
+            self.rects, self.warp = warp_layout(tile_wh, dev)
+            self.n_blocks = int((self.rects[:, 0] <= self.rects[:, 1]).sum())
+            # pairs, inside, hits, covered, visits, blocks, missed
+            self.load = torch.zeros(7, dtype=torch.int64, device=dev)
+
+    def __call__(self, tiles, chunks):
+        """[B, 5, P]: per pixel the chunk's nearest hit z (1 where none) and
+        the mean of the attributes of its pairs at exactly that z (0 where
+        none)."""
+        rows, chunk, tw = self.rows, self.chunk, self.tile_wh[0]
+        n_pairs = rows.shape[1]
+        slot = chunks[:, None] * chunk + self.lane  # [B, C]
+        in_run = ((slot >= self.rs[tiles, None])
+                  & (slot < self.re[tiles, None]))
+        blk = rows[:, torch.clamp(slot, max=n_pairs - 1)]  # [24, B, C]
+        px = (((tiles % self.ntx) * tw)[:, None].to(torch.float32)
+              + self.lx + 0.5)
+        py = (torch.div(tiles, self.ntx, rounding_mode="floor")
+              * self.tile_wh[1])[:, None].to(torch.float32) + self.ly + 0.5
+        px = px[:, None, :]  # [B, 1, P]
+        py = py[:, None, :]
+
+        def ev(k):
+            # (a*px + b*py) + c, each operation rounded on its own:
+            # the kernel evaluates the same sequence
+            return (blk[3 * k][..., None] * px
+                    + blk[3 * k + 1][..., None] * py
+                    + blk[3 * k + 2][..., None])  # [B, C, P]
+
+        b0, b1 = ev(0), ev(1)
+        b2 = 1.0 - b0 - b1
+        inside = ((b0 >= 0.0) & (b1 >= 0.0) & (b2 >= 0.0)
+                  & in_run[..., None])
+        z = ev(3)
+        if self.block_mask or self.stats is not None:
+            reach = tri_block_mask(
+                blk, tile_rects(tiles, self.tile_wh, self.ntx,
+                                self.rects)[:, None])
+            reach &= in_run[..., None]  # [B, C, 32]
+            px_reach = reach[..., self.warp]  # [B, C, P]
+            hits = inside & (z >= 0.0) & (z < 1.0)
+            self.load += torch.stack([
+                in_run.sum(), inside.sum(), hits.sum(), px_reach.sum(),
+                reach.sum(), in_run.sum() * self.n_blocks,
+                (hits & ~px_reach).sum()])
+            if self.block_mask:
+                inside &= px_reach
+        zk = torch.where(inside & (z >= 0.0), z, 2.0)  # near-plane clip
+        zmin = zk.amin(dim=1, keepdim=True)  # [B, 1, P]
+        hit = zmin < 1.0
+        wmask = (zk == zmin) & inside
+        cnt = torch.clamp(wmask.sum(dim=1, keepdim=True)
+                          .to(torch.float32), min=1.0)
+        res = [torch.where(hit, zmin, 1.0)[:, 0]]
+        for k in range(4, 8):
+            q = torch.where(wmask, ev(k), 0.0).sum(dim=1, keepdim=True)
+            res.append(torch.where(hit, q / cnt, 0.0)[:, 0])
+        return torch.stack(res, dim=1)  # [B, 5, P]
+
+    def finish(self):
+        if self.stats is None:
+            return
+        keys = ("pairs", "inside", "hits", "covered", "visits", "blocks",
+                "missed")
+        self.stats.update(zip(keys, (int(x) for x in self.load)))
+        p_n = self.tile_wh[0] * self.tile_wh[1]
+        self.stats["pair_pixels"] = self.stats["pairs"] * p_n
+        live = self.re > self.rs
+        self.stats["runs"] = self.re - self.rs
+        c0 = torch.div(self.rs, self.chunk, rounding_mode="floor")
+        c1 = torch.div(self.re - 1, self.chunk, rounding_mode="floor")
+        self.stats["chunks"] = torch.where(live, c1 - c0 + 1, 0)
+
+
+def _worklist_ranks(rs, re_, chunk):
+    """(entry tile, entry chunk, rank of the chunk in its tile's run)."""
+    wl = build_worklist(rs, re_, chunk=chunk)
+    et = wl["entry_tile"].long()
+    ec = wl["entry_chunk"].long()
+    return et, ec, ec - torch.div(rs[et], chunk, rounding_mode="floor")
+
+
+def _fold(tiles_out, partial, et, rank):
+    """Fold entry results into the tiles rank by rank (a tile's chunks in
+    order): a chunk replaces a pixel only where its z is strictly below the
+    pixel's so far (1 where nothing hit yet)."""
+    for r in range(int(rank.max()) + 1 if rank.numel() else 0):
+        idx = torch.nonzero(rank == r).flatten()
+        for b0 in range(0, idx.numel(), _PLAIN_BATCH):
+            sel = idx[b0:b0 + _PLAIN_BATCH]
+            new = partial(sel)
+            cur = tiles_out[et[sel]]
+            upd = new[:, 0:1] < cur[:, 0:1]
+            tiles_out[et[sel]] = torch.where(upd, new, cur)
+    return tiles_out
+
+
 def rasterize_triangles_plain(rows, range_start, range_end, *, image_wh,
-                              tile_wh, chunk: int = 128):
+                              tile_wh, chunk: int = 128,
+                              block_mask: bool = False, stats=None):
     """Plain PyTorch rasterizer of tile-sorted pair rows, with the kernel's
     semantics (same arguments as rasterize_pair_rows).
 
@@ -110,66 +296,129 @@ def rasterize_triangles_plain(rows, range_start, range_end, *, image_wh,
     `chunk` in the pair table. Within a chunk the nearest inside pair wins
     and the attributes of all pairs of the chunk at exactly that z are
     averaged; the chunk replaces a pixel only where its z is below 1 and
-    strictly below the pixel's z so far."""
+    strictly below the pixel's z so far.
+
+    block_mask=True skips, as the kernel does, the pair-pixels of the warp
+    blocks that tri_block_mask leaves out: the result is the same to the
+    bit. With `stats` (a dict) records the load: "pairs" (in runs),
+    "pair_pixels" (times the tile's pixels), "inside" (pair-pixels inside
+    their triangle), "hits" (of those, 0 <= z < 1), "covered" (pair-pixels
+    of the warp blocks the mask keeps), "visits" / "blocks" ((pair, warp
+    block) visits the mask keeps / all), "missed" (hits in a block the
+    mask leaves out: 0 when it is conservative), "runs" and "chunks"
+    ([n_tiles] run lengths and chunks per tile)."""
     tw, th = tile_wh
-    ntx, _, n_tiles = grid_dims(image_wh, tile_wh)
-    p_n = tw * th
-    dev = rows.device
-    tiles_out = _far_tiles(n_tiles, p_n, dev)
-    n_pairs = rows.shape[1]
-    rs = range_start.long()
-    re_ = range_end.long()
-    wl = build_worklist(rs, re_, chunk=chunk)
-    et = wl["entry_tile"].long()
-    ec = wl["entry_chunk"].long()
-    if et.numel() == 0:
-        return tiles_out
-    rank = ec - torch.div(rs[et], chunk, rounding_mode="floor")
-    i = torch.arange(p_n, device=dev)
-    lx = (i % tw).to(torch.float32)
-    ly = torch.div(i, tw, rounding_mode="floor").to(torch.float32)
-    lane = torch.arange(chunk, device=dev)
-    for r in range(int(rank.max()) + 1):
-        idx = torch.nonzero(rank == r).flatten()
-        for b0_ in range(0, idx.numel(), _PLAIN_BATCH):
-            sel = idx[b0_:b0_ + _PLAIN_BATCH]
-            tiles = et[sel]
-            slot = ec[sel, None] * chunk + lane  # [B, C]
-            in_run = (slot >= rs[tiles, None]) & (slot < re_[tiles, None])
-            blk = rows[:, torch.clamp(slot, max=n_pairs - 1)]  # [24, B, C]
-            px = ((tiles % ntx) * tw)[:, None].to(torch.float32) + lx + 0.5
-            py = (torch.div(tiles, ntx, rounding_mode="floor")
-                  * th)[:, None].to(torch.float32) + ly + 0.5
-            px = px[:, None, :]  # [B, 1, P]
-            py = py[:, None, :]
-
-            def ev(k):
-                # (a*px + b*py) + c, each operation rounded on its own:
-                # the kernel evaluates the same sequence
-                return (blk[3 * k][..., None] * px
-                        + blk[3 * k + 1][..., None] * py
-                        + blk[3 * k + 2][..., None])  # [B, C, P]
-
-            b0, b1 = ev(0), ev(1)
-            b2 = 1.0 - b0 - b1
-            inside = ((b0 >= 0.0) & (b1 >= 0.0) & (b2 >= 0.0)
-                      & in_run[..., None])
-            z = ev(3)
-            zk = torch.where(inside & (z >= 0.0), z, 2.0)  # near-plane clip
-            zmin = zk.amin(dim=1, keepdim=True)  # [B, 1, P]
-            hit = zmin < 1.0
-            wmask = (zk == zmin) & inside
-            cnt = torch.clamp(wmask.sum(dim=1, keepdim=True)
-                              .to(torch.float32), min=1.0)
-            cur = tiles_out[tiles]  # [B, 5, P]
-            upd = ((zmin < cur[:, 0:1]) & hit)[:, 0]  # [B, P]
-            new = [zmin[:, 0]]
-            for k in range(4, 8):
-                q = torch.where(wmask, ev(k), 0.0).sum(dim=1, keepdim=True)
-                new.append((q / cnt)[:, 0])
-            new = torch.stack(new, dim=1)  # [B, 5, P]
-            tiles_out[tiles] = torch.where(upd[:, None, :], new, cur)
+    n_tiles = grid_dims(image_wh, tile_wh)[2]
+    rs, re_ = range_start.long(), range_end.long()
+    tiles_out = _far_tiles(n_tiles, tw * th, rows.device)
+    entries = _Entries(rows, rs, re_, image_wh=image_wh, tile_wh=tile_wh,
+                       chunk=chunk, block_mask=block_mask, stats=stats)
+    et, ec, rank = _worklist_ranks(rs, re_, chunk)
+    _fold(tiles_out, lambda sel: entries(et[sel], ec[sel]), et, rank)
+    entries.finish()
     return tiles_out
+
+
+def trirast_entries_plain(rows, range_start, range_end, *, image_wh,
+                          tile_wh, chunk: int = 128):
+    """Plain version of the entry kernel (csrc/trirast.cu trirast_kernel):
+    every (tile, chunk) entry rasterized on its own, skipping what
+    tri_block_mask leaves out, into (scratch, out). A tile with an empty run
+    is far plane in `out`, a tile of one chunk has its result there; an
+    entry of a longer run leaves its partial (its
+    nearest hit z, 1 where none, and its ties' mean) in scratch slot 2c + 1
+    for the tile's first chunk c, 2c for a later one (fold_scratch). What
+    the kernel leaves unwritten is NaN here."""
+    tw, th = tile_wh
+    n_tiles = grid_dims(image_wh, tile_wh)[2]
+    rs, re_ = range_start.long(), range_end.long()
+    entries = _Entries(rows, rs, re_, image_wh=image_wh, tile_wh=tile_wh,
+                       chunk=chunk, block_mask=True, stats=None)
+    et, ec, _ = _worklist_ranks(rs, re_, chunk)
+    scratch = fold_scratch(rows.shape[1], tile_wh, chunk, rows.device)
+    scratch.fill_(torch.nan)
+    out = torch.full((n_tiles, 5, tw * th), torch.nan, device=rows.device)
+    out[re_ <= rs] = _far_tiles(1, tw * th, rows.device)
+    c0 = torch.div(rs, chunk, rounding_mode="floor")
+    c1 = torch.div(re_ - 1, chunk, rounding_mode="floor")
+    for b in range(0, et.numel(), _PLAIN_BATCH):
+        t, c = et[b:b + _PLAIN_BATCH], ec[b:b + _PLAIN_BATCH]
+        res = entries(t, c)
+        single = c0[t] == c1[t]
+        out[t[single]] = res[single]
+        scratch[(2 * c + (c == c0[t]))[~single]] = res[~single]
+    return scratch, out
+
+
+def rasterize_split_plain(rows, range_start, range_end, *, image_wh, tile_wh,
+                          chunk: int = 128):
+    """The kernels' split in plain PyTorch: trirast_entries_plain, then
+    trirast_fold_plain. Equal to the bit to rasterize_triangles_plain."""
+    scratch, out = trirast_entries_plain(
+        rows, range_start, range_end, image_wh=image_wh, tile_wh=tile_wh,
+        chunk=chunk)
+    return trirast_fold_plain(scratch, out, range_start, range_end,
+                              chunk=chunk)
+
+
+_entry = None
+
+
+def _launch(rows, range_start, range_end, out, scratch, *, ntx, tile_wh,
+            chunk, mode):
+    """One call of the C entry (resolved once): mode 1 the entry kernel, 2
+    the fold (when a run can cross a chunk), 3 both."""
+    global _entry
+    if _entry is None:
+        vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        _entry = kernels.load("trirast", gswt_trirast=[
+            vp, ll, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]).gswt_trirast
+    rc = _entry(
+        rows.data_ptr(), rows.shape[1], range_start.data_ptr(),
+        range_end.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        range_start.shape[0], ntx, tile_wh[0], tile_wh[1], chunk, mode,
+        kernels.stream_ptr(out))
+    if mode & 1:
+        kernels.LAUNCHES["trirast"] += 1
+    if mode & 2 and rows.shape[1] > chunk:  # a run can cross a chunk
+        kernels.LAUNCHES["trirast_fold"] += 1
+    kernels.check(rc, "trirast")
+
+
+def fold_scratch(n_pairs, tile_wh, chunk, device):
+    """The entries' partials for the fold: two slots per global chunk (the
+    tile whose run crosses the chunk's start, and the one that starts in it
+    and crosses its end), [2 * ceil(n_pairs / chunk), 5, P] f32."""
+    n_chunks = -(-n_pairs // chunk)
+    return torch.empty((2 * n_chunks, 5, tile_wh[0] * tile_wh[1]),
+                       dtype=torch.float32, device=device)
+
+
+def trirast_fold_plain(scratch, entry_out, range_start, range_end, *,
+                       chunk: int):
+    """Plain version of the fold kernel (csrc/trirast.cu
+    trirast_fold_kernel): from the entries' partials in `scratch`
+    (fold_scratch's slots) and the tiles the entries wrote (`entry_out`,
+    kept for the empty tiles and those of one chunk), the raster: a run of
+    several chunks folded in chunk order, the first chunk at the smallest z
+    winning."""
+    out = entry_out.clone()
+    rs, re_ = range_start.long(), range_end.long()
+    live = re_ > rs
+    c0 = torch.div(rs, chunk, rounding_mode="floor")
+    c1 = torch.div(re_ - 1, chunk, rounding_mode="floor")
+    multi = torch.nonzero(live & (c1 > c0)).flatten()
+    if multi.numel() == 0:
+        return out
+    cur = _far_tiles(multi.numel(), out.shape[2], out.device)
+    for k in range(int((c1 - c0)[multi].max()) + 1):
+        c = c0[multi] + k
+        slot = torch.clamp(2 * c + (k == 0), max=scratch.shape[0] - 1)
+        new = scratch[slot]
+        upd = (c <= c1[multi])[:, None, None] & (new[:, 0:1] < cur[:, 0:1])
+        cur = torch.where(upd, new, cur)
+    out[multi] = cur
+    return out
 
 
 def rasterize_pair_rows(rows, range_start, range_end, *, image_wh, tile_wh,
@@ -178,7 +427,7 @@ def rasterize_pair_rows(rows, range_start, range_end, *, image_wh, tile_wh,
     runs range_start/range_end [n_tiles] i32 -> [n_tiles, 5, P] (rows: z,
     1/w, u/w, v/w, extra/w); a tile with an empty run reads far plane
     (z = 1, attributes 0). CPU tensors take the plain version; CUDA tensors
-    launch the kernel."""
+    launch the kernels (the entries, then the fold)."""
     if not rows.is_cuda:
         return rasterize_triangles_plain(
             rows, range_start, range_end, image_wh=image_wh, tile_wh=tile_wh,
@@ -198,22 +447,18 @@ def rasterize_pair_rows(rows, range_start, range_end, *, image_wh, tile_wh,
                 or t.shape != (n_tiles,) or t.device != dev):
             raise ValueError(f"{name} must be contiguous int32 [{n_tiles}]")
     out = torch.empty((n_tiles, 5, p_n), dtype=torch.float32, device=dev)
-    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib = kernels.load("trirast", gswt_trirast=[
-        vp, ll, vp, vp, vp, ci, ci, ci, ci, ci, vp])
-    rc = lib.gswt_trirast(
-        kernels.ptr(rows), rows.shape[1], kernels.ptr(range_start),
-        kernels.ptr(range_end), kernels.ptr(out), n_tiles, ntx, tw, th,
-        chunk, kernels.stream_ptr(out))
-    kernels.LAUNCHES["trirast"] += 1
-    kernels.check(rc, "trirast")
+    _launch(rows, range_start, range_end, out,
+            fold_scratch(rows.shape[1], tile_wh, chunk, dev), ntx=ntx,
+            tile_wh=tile_wh, chunk=chunk, mode=3)
     return out
 
 
-def bin_triangles(planes, bbox, ok, *, image_wh, tile_wh):
+def bin_triangles(planes, bbox, ok, *, image_wh, tile_wh,
+                  return_index: bool = False):
     """Expand triangles into (tile, triangle) pairs sorted by tile (triangle
     order kept inside a tile). Returns (rows [24, n_pairs], range_start,
-    range_end [n_tiles] i32, n_pairs)."""
+    range_end [n_tiles] i32, n_pairs), and with return_index also the
+    pairs' (tile, triangle) indices [n_pairs] i64."""
     w_img, h_img = image_wh
     tw, th = tile_wh
     ntx, nty, n_tiles = grid_dims(image_wh, tile_wh)
@@ -229,6 +474,8 @@ def bin_triangles(planes, bbox, ok, *, image_wh, tile_wh):
         x0, x1, y0, y1, ok & onscreen, ntx=ntx)
     rows = planes[:, sorted_tri].contiguous()  # [24, n_pairs]
     range_start, range_end = tile_ranges(sorted_key, n_tiles)
+    if return_index:
+        return rows, range_start, range_end, total, sorted_key, sorted_tri
     return rows, range_start, range_end, total
 
 

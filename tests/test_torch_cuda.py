@@ -16,7 +16,11 @@ bit-equal and its attributes within 1e-5 relative (the kernel rounds every
 multiply and add as the plain version does; only the order of a tie's sum
 can differ); the bilinear sampler bit-equal (same operations, each rounded
 on its own, in the same order); the mip sampler within 1e-6 (log2f against
-torch.log2 in the level)."""
+torch.log2 in the level).
+
+The triangle raster's card tests run its two kernels (the entries and the
+fold) on adversarial triangles from tests/torch_tables.py, which imports no
+jax either."""
 
 import numpy as np
 import pytest
@@ -33,6 +37,20 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     return torch.device("cuda")
+
+
+def test_stream_ptr_is_the_current_stream(cuda):
+    """Every wrapper launches on PyTorch's current stream, a side stream
+    included."""
+    x = torch.zeros(4, device=cuda)
+    assert kernels.stream_ptr(x) == torch.cuda.current_stream().cuda_stream
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert kernels.stream_ptr(x) == side.cuda_stream
+        got = block_gather(torch.ones((16, 512), device=cuda),
+                           torch.zeros(3, dtype=torch.int32, device=cuda))
+    side.synchronize()
+    assert bool((got == 1.0).all())
 
 
 def _payload_table(rng, n_blocks):
@@ -401,10 +419,13 @@ def test_bilinear_kernel_rejects_bad_inputs(cuda):
 
 
 def _pyramid(size, seed, device):
+    """A size x size (or size = (w, h)) chain packed: (planes, meta, l_min,
+    number of levels)."""
     from gswt_renderer_tpu_torch.io.textures import build_mip_chain
 
+    w, h = (size, size) if isinstance(size, int) else size
     rng = np.random.default_rng(seed)
-    mips = build_mip_chain(rng.uniform(size=(size, size, 3)).astype(np.float32))
+    mips = build_mip_chain(rng.uniform(size=(h, w, 3)).astype(np.float32))
     planes, meta, l_min = texsample.pack_pyramid(mips)
     return (torch.from_numpy(planes).to(device).to(torch.bfloat16), meta,
             l_min, len(mips))
@@ -424,7 +445,9 @@ def test_mip_trilinear_kernel_matches_plain(cuda, size, p):
     rho[64:128] = float(2 ** (n_lv - 2))  # exactly the 2x2 level: frac = 0
     rho = torch.from_numpy(rho).to(cuda)
     before = kernels.LAUNCHES["mip_trilinear"]
-    got = texsample.factored_mip_trilinear(planes, meta, l_min, u, v, rho)
+    got = texsample.factored_mip_trilinear(
+        planes, meta, l_min, u, v, rho,
+        texels=texsample.interleave_pyramid(planes))
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["mip_trilinear"] == before + 1
     want = texsample.factored_mip_trilinear_plain(planes, meta, l_min, u, v,
@@ -432,6 +455,59 @@ def test_mip_trilinear_kernel_matches_plain(cuda, size, p):
     assert float((got - want).abs().max()) <= SAMPLER_TOL
     texel = planes[:, meta[-1][2], meta[-1][3]].to(torch.float32) / 255.0
     assert float((got[:, :64] - texel[:, None]).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("wh", [(64, 64), (128, 8), (512, 512)])
+def test_mip_trilinear_kernel_on_interleaved_texels(cuda, wh):
+    """The interleaved texels through the kernel: negative and very large
+    uv (the integer wrap below 2^24, the float one above), 1-wide levels of
+    a non-square chain, l0 == l1, the l_min clamp of a 512 chain, against
+    the plain spec and the texel plain form; one launch per call."""
+    planes, meta, l_min, n_lv = _pyramid(wh, 3, cuda)
+    texels = texsample.interleave_pyramid(planes)
+    assert texels.shape == planes.shape[1:] + (4,)
+    rng = np.random.default_rng(5)
+    p = 30000
+    u = rng.uniform(-3, 4, p).astype(np.float32)
+    v = rng.uniform(-3, 4, p).astype(np.float32)
+    u[:3000] *= -1e4
+    v[3000:6000] *= 1e5
+    u[6000:9000] = rng.uniform(-1e9, 1e9, 3000)
+    rho = (2.0 ** rng.uniform(-3.0, n_lv + 2.0, p)).astype(np.float32)
+    rho[9000:9500] = 1e7                 # l0 == l1
+    t = lambda a: torch.from_numpy(a).to(cuda)
+    args = (meta, l_min, t(u), t(v), t(rho))
+    before = kernels.LAUNCHES["mip_trilinear"]
+    got = texsample.factored_mip_trilinear(planes, *args, texels=texels)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["mip_trilinear"] == before + 1
+    finite = slice(0, 6000)   # the plain version indexes raw taps: keep
+    want = texsample.factored_mip_trilinear_plain(   # it to finite wraps
+        planes, *(a[finite] if torch.is_tensor(a) else a for a in args))
+    assert float((got[:, finite] - want).abs().max()) <= SAMPLER_TOL
+    rest = slice(9000, p)
+    want = texsample.factored_mip_trilinear_plain(
+        planes, *(a[rest] if torch.is_tensor(a) else a for a in args))
+    assert float((got[:, rest] - want).abs().max()) <= SAMPLER_TOL
+    tex_form = texsample.factored_mip_trilinear_texels_plain(
+        texels, 3, *(a[rest] if torch.is_tensor(a) else a for a in args))
+    assert torch.equal(tex_form, want)
+    # astronomically large uv: finite, in range, no fault
+    assert bool(torch.isfinite(got).all())
+    assert float(got.min()) >= 0.0 and float(got.max()) <= 1.0
+
+
+def test_mip_trilinear_rejects_bad_texels(cuda):
+    planes, meta, l_min, _ = _pyramid(64, 1, cuda)
+    texels = texsample.interleave_pyramid(planes)
+    u = torch.zeros(10, device=cuda)
+    for bad in (None, texels.float(), texels[:-1].contiguous()):
+        with pytest.raises(ValueError):
+            texsample.factored_mip_trilinear(planes, meta, l_min, u, u,
+                                             u + 1, texels=bad)
+    with pytest.raises(ValueError):
+        texsample.factored_mip_trilinear(planes, meta, l_min, u, u[:5], u,
+                                         texels=texels)
 
 
 def _tri_rows(xs, ys, zs, attrs, device, image_wh, tile_wh):
@@ -446,10 +522,12 @@ def _tri_rows(xs, ys, zs, attrs, device, image_wh, tile_wh):
 
 def _assert_trirast_equal(rows, rs, re_, image_wh, tile_wh, chunk=128):
     kw = dict(image_wh=image_wh, tile_wh=tile_wh, chunk=chunk)
-    before = kernels.LAUNCHES["trirast"]
+    before = dict(kernels.LAUNCHES)
     got = trirast.rasterize_pair_rows(rows, rs, re_, **kw)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["trirast"] == before + 1
+    assert kernels.LAUNCHES["trirast"] == before.get("trirast", 0) + 1
+    assert (kernels.LAUNCHES["trirast_fold"]
+            == before.get("trirast_fold", 0) + 1)
     want = trirast.rasterize_triangles_plain(rows, rs, re_, **kw)
     assert torch.equal(got[:, 0], want[:, 0]), "z must be bit-equal"
     err = (got[:, 1:] - want[:, 1:]).abs()
@@ -496,6 +574,58 @@ def test_trirast_kernel_on_pixel_centre_edges_and_ties(cuda):
     z, _ = trirast.tiles_to_maps(got, image_wh=image_wh, tile_wh=tile_wh)
     # no hole inside the fan: the hexagon's interior rows are fully covered
     assert bool((z[21, 1:100] < 1.0).all())
+
+
+@pytest.mark.parametrize("chunk", [32, 128])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_trirast_kernel_on_adversarial_triangles(cuda, seed, chunk):
+    """Slivers, vertices 1e4 px off-screen, edges through pixel centres,
+    near- and far-plane crossings, ties within and across chunk
+    boundaries, runs starting mid-chunk, empty tiles (tests/torch_tables.py
+    adversarial_triangles): z and the hit mask bit-equal to the plain spec,
+    attributes within 1e-5 relative."""
+    from torch_tables import adversarial_triangles, binned_triangles
+
+    rows, rs, re_, _ = binned_triangles(adversarial_triangles(seed),
+                                        device=cuda)
+    assert int(((re_ - rs) == 0).sum()) >= 6   # the empty bottom row
+    got = _assert_trirast_equal(rows, rs, re_, (384, 256), (64, 32), chunk)
+    assert bool((got[-6:, 0] == 1.0).all()) and not got[-6:, 1:].any()
+    # the kernels' split, emulated on the card by the plain split
+    split = trirast.rasterize_split_plain(rows, rs, re_, image_wh=(384, 256),
+                                          tile_wh=(64, 32), chunk=chunk)
+    assert torch.equal(got[:, 0], split[:, 0])
+
+
+@pytest.mark.parametrize("tile_wh", [(64, 32), (100, 20)])
+def test_trirast_single_tile_of_five_chunks(cuda, tile_wh):
+    """One tile whose run starts mid-chunk and spans 5 chunks of 128 (the
+    other tiles empty), coincident copies tying across every boundary and a
+    nearer triangle in the fourth chunk; the block layout (64x32) and the
+    flat one (100x20)."""
+    rng = np.random.default_rng(4)
+    n = 560
+    tw, th = tile_wh
+    xs = np.tile(np.array([[2.5], [tw - 3.5], [2.5]], np.float32), (1, n))
+    ys = np.tile(np.array([[1.5], [1.5], [th - 2.5]], np.float32), (1, n))
+    xs = xs + rng.uniform(0, 2, (1, n)).astype(np.float32) * (np.arange(n) % 3 == 0)
+    zs = np.full((3, n), 0.5, np.float32)
+    zs[:, 420:430] = 0.25
+    attrs = rng.uniform(-1, 1, (3, 3, n)).astype(np.float32)
+    rows, rs, re_, total = _tri_rows(xs, ys, zs, attrs, cuda,
+                                     (2 * tw, th), tile_wh)
+    assert total == n
+    # move the run to start 40 pairs into a chunk: 40 dead columns first
+    rows = torch.cat([torch.zeros((24, 40), device=cuda), rows], 1)
+    rows = rows.contiguous()
+    live = (re_ > rs).int()
+    rs, re_ = (rs + 40 * live).int(), (re_ + 40 * live).int()
+    assert int((re_ - rs).max()) == n and int(rs.max()) == 40
+    c0, c1 = 40 // 128, (40 + n - 1) // 128
+    assert c1 - c0 + 1 == 5
+    got = _assert_trirast_equal(rows, rs, re_, (2 * tw, th), tile_wh)
+    assert bool((got[1, 0] == 1.0).all())
+    assert float((got[0, 0] < 1.0).float().mean()) > 0.3
 
 
 def test_full_config_frame_matches_cpu_path(cuda):

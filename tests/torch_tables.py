@@ -120,3 +120,111 @@ def adversarial_binned(seed, tile_wh, grid=(2, 2), *, exact=True, chunk=128):
                   range_start=torch.tensor(rs, dtype=torch.int32),
                   range_end=torch.tensor(re_, dtype=torch.int32))
     return binned, (grid[0] * tw, grid[1] * th)
+
+
+TRI_KINDS = ("sliver", "offscreen", "edge_centres", "near_plane", "ties",
+             "random")
+
+
+def adversarial_triangles(seed, image_wh=(384, 256), kinds=TRI_KINDS,
+                          n_per_kind=48):
+    """Screen-space triangles (xs, ys, zs, ws [3, T], attrs [3, 3, T] f32
+    numpy) meant to break the triangle raster's block mask and its split
+    at chunk boundaries, on an image of 64x32 tiles: they lie in its top
+    left (image width - 128) x (height - 128) pixels, give or take 80, so
+    its bottom tile row stays empty. Slivers down to
+    |area2| just above 1e-12 (tiny ones near the origin, needles with
+    perpendicular offsets of 1e-9 .. 1e-5 px); vertices 1e4 px off-screen;
+    fans and right triangles whose edges run through pixel centres (b = 0
+    exactly there) and end on warp-block boundaries; vertices on both sides
+    of the near (z = 0) and far (z = 1) planes; and 150 coincident copies
+    of one triangle (z ties within a chunk and across chunk boundaries)."""
+    rng = np.random.default_rng(seed)
+    w = float(image_wh[0] - 128)
+    h = float(image_wh[1] - 128)
+    n = n_per_kind
+    xs, ys, zs = [], [], []
+
+    def add(x, y, z=None):
+        x = np.asarray(x, np.float64).reshape(3, -1)
+        y = np.asarray(y, np.float64).reshape(3, -1)
+        xs.append(x)
+        ys.append(y)
+        zs.append(rng.uniform(0.05, 0.95, x.shape) if z is None else
+                  np.broadcast_to(z, x.shape))
+
+    for kind in kinds:
+        if kind == "sliver":
+            # tiny, near the origin where f32 resolves 1e-6
+            p = rng.uniform(0.3, 2.0, (2, n))
+            d1, d2 = 10 ** rng.uniform(-6, -5, (2, n))
+            add([p[0], p[0] + d1, p[0]], [p[1], p[1], p[1] + d2])
+            # needles: a long edge and a third vertex barely off it
+            p = rng.uniform([[0.0], [0.0]], [[w], [h]], (2, n))
+            ang = rng.uniform(0, 2 * np.pi, n)
+            ln = rng.uniform(10, 80, n)
+            ex, ey = np.cos(ang) * ln, np.sin(ang) * ln
+            t = rng.uniform(0.2, 0.8, n)
+            off = 10 ** rng.uniform(-9, -5, n)
+            add([p[0], p[0] + ex, p[0] + t * ex - off * ey / ln],
+                [p[1], p[1] + ey, p[1] + t * ey + off * ex / ln])
+        elif kind == "offscreen":
+            p = rng.uniform([[0.0], [0.0]], [[w], [h]], (2, n))
+            q = rng.uniform([[0.0], [0.0]], [[w], [h]], (2, n))
+            far = rng.choice([-1e4, 1e4], (2, n))
+            add([p[0], p[0] + far[0], q[0]],
+                [p[1], p[1] + rng.uniform(-20, 20, n),
+                 q[1] + np.sign(far[1]) * rng.uniform(0, 20, n)])
+        elif kind == "edge_centres":
+            # fans around half-integer hubs with half-integer rims
+            for _ in range(max(n // 6, 1)):
+                hub = np.floor(rng.uniform([8, 8], [w - 8, h - 8])) + 0.5
+                rim = hub + np.floor(rng.uniform(-40, 40, (6, 2))) + 0.0
+                for i in range(6):
+                    a, b = rim[i], rim[(i + 1) % 6]
+                    add([hub[0], a[0], b[0]], [hub[1], a[1], b[1]])
+            # right triangles whose legs run along pixel-centre lines and
+            # end on 16x4 block boundaries (x = 16k + 15.5, y = 4m + 3.5)
+            x0 = 16 * rng.integers(0, int(w) // 16, n) + 15.5
+            y0 = 4 * rng.integers(0, int(h) // 4, n) + 3.5
+            sx = rng.choice([-1.0, 1.0], n) * 16 * rng.integers(1, 4, n)
+            sy = rng.choice([-1.0, 1.0], n) * 4 * rng.integers(1, 6, n)
+            add([x0, x0 + sx, x0], [y0, y0, y0 + sy])
+        elif kind == "near_plane":
+            p = rng.uniform([[0.0], [0.0]], [[w], [h]], (2, n))
+            add(p[0] + rng.uniform(-60, 60, (3, n)),
+                p[1] + rng.uniform(-30, 30, (3, n)),
+                rng.uniform(-0.5, 1.5, (3, n)))
+        elif kind == "ties":
+            base_x = rng.uniform(8, w - 40) + np.array([0.0, 30.0, 4.0])
+            base_y = rng.uniform(4, h - 28) + np.array([0.0, 3.0, 24.0])
+            add(np.repeat(base_x[:, None], 150, 1),
+                np.repeat(base_y[:, None], 150, 1), 0.5)
+        elif kind == "random":
+            p = rng.uniform([[0.0], [0.0]], [[w], [h]], (2, n))
+            add(p[0] + rng.uniform(-40, 40, (3, n)),
+                p[1] + rng.uniform(-20, 20, (3, n)))
+        else:
+            raise ValueError(kind)
+    xs = np.concatenate(xs, 1).astype(np.float32)
+    ys = np.concatenate(ys, 1).astype(np.float32)
+    zs = np.concatenate(zs, 1).astype(np.float32)
+    t = xs.shape[1]
+    ws = rng.uniform(0.5, 4.0, (3, t)).astype(np.float32)
+    attrs = rng.uniform(-1, 1, (3, 3, t)).astype(np.float32)
+    attrs[0] = np.arange(t, dtype=np.float32)  # tells tied copies apart
+    return xs, ys, zs, ws, attrs
+
+
+def binned_triangles(tris, image_wh=(384, 256), tile_wh=(64, 32),
+                     device="cpu"):
+    """(rows, range_start, range_end, n_pairs) of adversarial_triangles'
+    output through the port's triangle_planes and bin_triangles."""
+    from gswt_renderer_tpu_torch.ops import trirast as ttri
+
+    xs, ys, zs, ws, attrs = (torch.from_numpy(a).to(device) for a in tris)
+    planes, ok, bbox = ttri.triangle_planes(
+        xs, ys, zs, ws, attrs,
+        torch.ones(xs.shape[1], dtype=torch.bool, device=device))
+    return ttri.bin_triangles(planes, bbox, ok, image_wh=image_wh,
+                              tile_wh=tile_wh)
