@@ -91,8 +91,10 @@ RASTER_ROWS = 11
 # plane evaluations (b0, b1, z) of two multiplies and two adds, and two
 # subtractions for b2; the attribute planes are evaluated only for a pair
 # that is its pixel's nearest so far and are not counted. Its bound counts
-# this work on every pair-pixel; the covered-only term printed beside it
-# counts it on the pair-pixels of the warp blocks the kernel's mask keeps.
+# this work on what the run's data needs: the pair-pixels of the warp blocks
+# the kernel's mask keeps (covered-only; a pair cannot put a pixel centre of
+# another block inside). The older convention, every pair-pixel of every
+# pair's tile, is printed beside it.
 TRIRAST_FP32_OPS = 14
 
 # per channel, every variant: the plain version walks a chunk's pairs in the
@@ -696,10 +698,10 @@ def main():
         multi = int((st["chunks"] > 1).sum())
         tri_bytes = 4 * (rows.numel() + t_rs.numel() + t_re.numel()
                          + k_out.numel())
-        tri_ops = n_tri_pairs * p_n_proxy * TRIRAST_FP32_OPS
         tri_bounds = (tri_bytes / HBM_BYTES_PER_S,
-                      tri_ops / FP32_OPS_PER_S)
-        covered_ms = st["covered"] * TRIRAST_FP32_OPS / FP32_OPS_PER_S * 1e3
+                      st["covered"] * TRIRAST_FP32_OPS / FP32_OPS_PER_S)
+        every_ms = (n_tri_pairs * p_n_proxy * TRIRAST_FP32_OPS
+                    / FP32_OPS_PER_S * 1e3)
         tr = dict(
             name="trirast", route="cuda",
             source="gswt_renderer_tpu_torch/csrc/trirast.cu",
@@ -715,11 +717,14 @@ def main():
             bound_by=("bytes" if tri_bounds[0] >= tri_bounds[1]
                       else "operations"),
         )
-        # the fold: the partials of the multi-chunk tiles' entries read
-        # once, their tiles written once, the ranges
-        n_multi_entries = int(st["chunks"][st["chunks"] > 1].sum())
-        fold_bytes = 4 * (5 * p_n_proxy * (n_multi_entries + multi)
-                          + 2 * n_t)
+        # the fold: per pixel of a multi-chunk tile the z of each of its
+        # slots, the winner's 4 means where a chunk hit, the 5 output rows;
+        # the ranges of every tile
+        is_multi = st["chunks"] > 1
+        n_multi_entries = int(st["chunks"][is_multi].sum())
+        multi_hits = int((k_out[is_multi, 0] < 1.0).sum())
+        fold_bytes = 4 * (p_n_proxy * (n_multi_entries + 5 * multi)
+                          + 4 * multi_hits + 2 * n_t)
         fd = dict(
             name="trirast_fold", route="cuda",
             source="gswt_renderer_tpu_torch/csrc/trirast.cu",
@@ -790,11 +795,13 @@ def main():
               f"device time entries {own['trirast_kernel']:.4f}, fold "
               f"{own['trirast_fold_kernel']:.4f} ms; plain "
               f"{tr['plain_ms']:.3f}; bound {tr['bound_ms']:.4f} by "
-              f"{tr['bound_by']}: bytes {tri_bounds[0] * 1e3:.4f}, every "
-              f"pair-pixel's operations {tri_bounds[1] * 1e3:.4f}, "
+              f"{tr['bound_by']}: bytes {tri_bounds[0] * 1e3:.4f}, "
               f"covered-only operations (the pair-pixels of the warp blocks "
-              f"the mask keeps) {covered_ms:.5f}; fold bound "
-              f"{fd['bound_ms']:.4f} (bytes), plain fold "
+              f"the mask keeps) {tri_bounds[1] * 1e3:.5f} (the older "
+              f"convention, every pair-pixel's operations: {every_ms:.4f}); "
+              f"fold bound {fd['bound_ms']:.4f} (bytes: the slots' z, the "
+              f"winners' means on {multi_hits} hit px of {multi} multi-chunk "
+              f"tiles, the output), plain fold "
               f"{fd['plain_ms']:.3f}")
         print(f"[kernel] trirast {label} on the longest run alone "
               f"({int(runs[top])} pairs, tile {top}, "
@@ -807,9 +814,9 @@ def main():
 
     def mip_check(wh):
         """The mip pyramid sampler at a wh proxy pass's own u, v, rho: the
-        kernel on the Renderer's interleaved texels against the plain spec
-        on the planes; its time by events, its own device time, and the
-        wrapper's host time per call."""
+        kernel on the Renderer's pyramid (the interleaved texels) against
+        the plain spec on the planes; its time by events, its own device
+        time, and the wrapper's host time per call."""
         n_s = wh[0] * wh[1]
         _, u_px, v_px, _, hit_px, _ = proxy.raster_map_grid(
             cam_d, scene_d, wh, r.hm4, r.height_map_wh, r.proxy_verts,
@@ -818,19 +825,20 @@ def main():
         rho_px = proxy._uv_footprint(u_px, v_px, float(r.proxy_wh[0]),
                                      float(r.proxy_wh[1]))
         pyr_meta, l_min = r.proxy_pyr_meta
-        mip_args = (r.proxy_pyr, pyr_meta, l_min, u_px, v_px, rho_px)
-        texels = r.proxy_pyr_texels
+        texels = r.proxy_pyr
+        planes = texels[..., :3].permute(2, 0, 1).contiguous()
+        mip_args = (pyr_meta, l_min, u_px, v_px, rho_px)
 
         def kernel():
-            return texsample.factored_mip_trilinear(*mip_args, texels=texels)
+            return texsample.factored_mip_trilinear(texels, *mip_args, n_ch=3)
 
         k_out = kernel()
-        p_out = texsample.factored_mip_trilinear_plain(*mip_args)
+        p_out = texsample.factored_mip_trilinear_plain(planes, *mip_args)
         t_out = texsample.factored_mip_trilinear_texels_plain(
-            texels, 3, *mip_args[1:])
+            texels, 3, *mip_args)
         mip_err = float((k_out - p_out).abs().amax())
         print(f"[kernel] mip_trilinear {wh[0]}x{wh[1]}: planes "
-              f"{tuple(r.proxy_pyr.shape)}, texels {tuple(texels.shape)}, "
+              f"{tuple(planes.shape)}, texels {tuple(texels.shape)}, "
               f"l_min {l_min}, {len(pyr_meta)} levels at {n_s} samples "
               f"({float(hit_px.float().mean()):.3f} on the ground): max abs "
               f"diff {mip_err:.3e}; the texel plain form bit-equal to the "
@@ -847,7 +855,8 @@ def main():
             ms=_time_ms(torch, kernel, 200),
             plain_ms=_time_ms(
                 torch,
-                lambda: texsample.factored_mip_trilinear_plain(*mip_args), 3),
+                lambda: texsample.factored_mip_trilinear_plain(planes,
+                                                               *mip_args), 3),
             library_ms=None,  # no single PyTorch call samples a packed mip chain
             # texels (8 B each), u, v and rho read once; [3, P] written once
             bound_ms=(texels.numel() * 2 + 4 * 3 * n_s + 4 * 3 * n_s)

@@ -122,17 +122,12 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc}")
 
 
-# PyTorch's raw accessor of the current stream, in its CUDA builds: a far
-# cheaper call on every launch than torch.cuda.current_stream(), which
-# builds a Stream object
-_current_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-
-
 def stream_ptr(t: torch.Tensor) -> int:
-    """PyTorch's current stream on the tensor's device, for a launch."""
-    if _current_raw_stream is not None:
-        return _current_raw_stream(t.get_device())
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """PyTorch's current stream on the tensor's device, for a launch. It
+    reads PyTorch's raw accessor of the current stream (CUDA builds only):
+    a far cheaper call on every launch than torch.cuda.current_stream(),
+    which builds a Stream object."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -378,8 +378,8 @@ def render_proxy(
     use_grid: bool = True, n_steps: int = 96, max_dist: float = 2400.0,
 ):
     """Hybrid proxy pass. proxy: dict(atlas [4, total] int32 words, verts
-    [2, Nv], tris [3, T], optional pyr [3, Hp, Wp] bf16 and its
-    interleaved copy pyr_texels [Hp, Wp, 4]) with mip_meta the
+    [2, Nv], tris [3, T], optional pyr: the packed rgb pyramid as
+    texsample.sampler_pyramid lays it out on its device) with mip_meta the
     per-level (w, h, off) tuple. When mip_pyr (the (meta, l_min) from
     texsample.pack_pyramid) is given and proxy carries the packed pyramid
     planes, mip sampling goes through the pyramid kernel (fast profile;
@@ -417,8 +417,7 @@ def render_proxy(
         if mip_pyr is not None and proxy.get("pyr") is not None:
             pyr_meta, l_min = mip_pyr
             rgb = factored_mip_trilinear(
-                proxy["pyr"], pyr_meta, l_min, u, v, rho,
-                texels=proxy.get("pyr_texels"),
+                proxy["pyr"], pyr_meta, l_min, u, v, rho, n_ch=3,
             ).permute(1, 2, 0)
         else:
             rgb = sample_mip_trilinear(proxy["atlas"], meta, u, v, rho)

@@ -21,8 +21,9 @@ On the card both are CUDA kernels (``csrc/bilinear.cu``,
 ``csrc/miptrilinear.cu``) in which every thread reads its own taps; on the
 CPU they are the plain PyTorch versions beside them, which do the same
 arithmetic in the same order. The pyramid kernel reads a texel-interleaved
-copy of the planes (``interleave_pyramid``, one 8-byte load per tap) and
-wraps in integers where that is exact;
+copy of the planes (``interleave_pyramid``, one 8-byte load per tap; the
+pyramid on each device is laid out by ``sampler_pyramid``) and wraps in
+integers where that is exact;
 ``factored_mip_trilinear_texels_plain`` is that form in plain PyTorch.
 """
 
@@ -311,43 +312,50 @@ def _mip_level_table(meta):
     return tab
 
 
-def _sample_arg(name, t, p, dev):
-    if t.dtype != torch.float32 or t.device != dev or t.numel() != p:
-        raise ValueError(f"{name} must be float32 with {p} elements on {dev}")
-    return t if t.is_contiguous() else t.contiguous()
+def sampler_pyramid(planes):
+    """The packed pyramid [C, Hp, Wp] bf16 in the layout that
+    factored_mip_trilinear reads on its device: the planes themselves on
+    the CPU, their texel-interleaved copy (interleave_pyramid) on CUDA.
+    Built once per texture (the Renderer keeps it), never per frame."""
+    return interleave_pyramid(planes) if planes.is_cuda else planes
 
 
-def factored_mip_trilinear(planes, meta, l_min, u, v, rho, *, texels=None):
+def factored_mip_trilinear(pyr, meta, l_min, u, v, rho, *, n_ch=None):
     """Trilinear Repeat mip sampling of a pack_pyramid chain.
 
-    planes: [3, Hp, Wp] bf16; meta/l_min from pack_pyramid; u, v: [...] uv
-    in texture-repeat units; rho: footprint in LEVEL-0 texels per pixel
-    (levels below l_min clamp to l_min). Returns [3, ...] f32 rgb. CPU
-    tensors take the plain version; CUDA tensors launch the kernel, which
-    reads `texels`, the interleaved copy of the planes (interleave_pyramid,
-    built once per texture: the Renderer keeps one)."""
-    if not planes.is_cuda:
-        return factored_mip_trilinear_plain(planes, meta, l_min, u, v, rho)
-    n_ch, hp, wp = planes.shape
-    dev = planes.device
-    if (texels is None or texels.dtype != torch.bfloat16 or texels.shape != (
-            hp, wp, MAX_MIP_CHANNELS) or not texels.is_contiguous()
-            or texels.device != dev):
-        raise ValueError(f"texels must be a contiguous bfloat16 "
-                         f"[{hp}, {wp}, {MAX_MIP_CHANNELS}] on {dev}")
+    pyr: the chain as sampler_pyramid lays it out: on the CPU the planes
+    [C, Hp, Wp] bf16, taken by the plain version; on CUDA the interleaved
+    texels [Hp, Wp, 4] bf16, read by the kernel, with n_ch (<= 4) the
+    number of channels they carry. meta/l_min from pack_pyramid; u, v:
+    [...] uv in texture-repeat units; rho: footprint in LEVEL-0 texels per
+    pixel (levels below l_min clamp to l_min). Returns [n_ch, ...] f32."""
+    if not pyr.is_cuda:
+        if n_ch is not None and n_ch != pyr.shape[0]:
+            raise ValueError(f"the planes carry {pyr.shape[0]} channels, "
+                             f"not {n_ch}")
+        return factored_mip_trilinear_plain(pyr, meta, l_min, u, v, rho)
+    dev = pyr.device
+    if (pyr.dtype != torch.bfloat16 or pyr.dim() != 3
+            or pyr.shape[2] != MAX_MIP_CHANNELS or not pyr.is_contiguous()):
+        raise ValueError(f"on CUDA the pyramid must be the contiguous "
+                         f"bfloat16 texels [Hp, Wp, {MAX_MIP_CHANNELS}] of "
+                         f"sampler_pyramid")
+    if n_ch is None or not 1 <= n_ch <= MAX_MIP_CHANNELS:
+        raise ValueError(f"n_ch must be 1..{MAX_MIP_CHANNELS}")
+    hp, wp, _ = pyr.shape
     if not isinstance(meta, tuple):
         meta = tuple(tuple(lv) for lv in meta)
     n_kept = len(meta)
     if not 1 <= n_kept <= MAX_PYR_LEVELS:
         raise ValueError(f"the CUDA sampler takes 1..{MAX_PYR_LEVELS} levels")
-    p = u.numel()
-    uf = _sample_arg("u", u, p, dev)
-    vf = _sample_arg("v", v, p, dev)
-    rf = _sample_arg("rho", rho, p, dev)
+    uf = _flat_f32("u", u, device=dev)
+    p = uf.shape[0]
+    vf = _flat_f32("v", v, p, dev)
+    rf = _flat_f32("rho", rho, p, dev)
     out = torch.empty((n_ch,) + tuple(u.shape), dtype=torch.float32,
                       device=dev)
     rc = _mip_launch_fn()(
-        texels.data_ptr(), n_ch, hp, wp, _mip_level_table(meta), n_kept,
+        pyr.data_ptr(), n_ch, hp, wp, _mip_level_table(meta), n_kept,
         int(l_min), uf.data_ptr(), vf.data_ptr(), rf.data_ptr(), p,
         out.data_ptr(), kernels.stream_ptr(out))
     kernels.LAUNCHES["mip_trilinear"] += 1

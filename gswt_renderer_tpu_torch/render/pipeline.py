@@ -51,7 +51,7 @@ from ..ops.kernels import resolve_device
 from ..ops.project import GS_BITS, pack_tex4
 from ..ops.proxy import atlas_words, make_map_grid, pack_mip_atlas, render_proxy
 from ..ops.skybox import bake_hdri_to_cubemap, render_skybox
-from ..ops.texsample import interleave_pyramid, pack_pyramid
+from ..ops.texsample import pack_pyramid, sampler_pyramid
 from ..tiles.structures import DrawTable
 from .uniforms import SceneParams
 
@@ -210,10 +210,10 @@ def state_from_numpy(arrays: dict, device) -> dict:
             out[k] = bool(a)
         elif k == "proxy_tex":
             out[k] = atlas_words(np.asarray(a)).to(dev)
-        elif k == "proxy_pyr":
-            out[k] = torch.tensor(
+        elif k == "proxy_pyr":  # [3, Hp, Wp], laid out for dev's sampler
+            out[k] = sampler_pyramid(torch.tensor(
                 np.asarray(a).astype(np.float32), device=dev
-            ).to(torch.bfloat16)
+            ).to(torch.bfloat16))
         elif k == "proxy_tris":
             out[k] = torch.tensor(np.asarray(a, np.int32), device=dev)
         elif k == "proxy_mip_meta":
@@ -255,9 +255,8 @@ class Renderer:
         self.proxy_tex = None
         self.proxy_mip_meta = ((1, 1, 0),)
         self.proxy_wh = (1, 1)
+        # the packed pyramid in its device's sampler layout (sampler_pyramid)
         self.proxy_pyr = None
-        # the pyramid texel-interleaved, the CUDA sampler's layout
-        self.proxy_pyr_texels = None
         self.proxy_pyr_meta = None
         self.proxy_verts = torch.zeros((2, 4), dtype=torch.float32,
                                        device=self.device)
@@ -273,9 +272,6 @@ class Renderer:
             if k not in _STATE_KEYS:
                 raise KeyError(f"unknown renderer state {k!r}")
             setattr(self, k, v)
-            if k == "proxy_pyr":
-                self.proxy_pyr_texels = (None if v is None
-                                         else interleave_pyramid(v))
 
     # ------------------------------------------------------------------ #
     def configure(self, user_data):
@@ -344,8 +340,8 @@ class Renderer:
         self.proxy_mip_meta = meta
         self.proxy_wh = (meta[0][0], meta[0][1])
         pyr, pyr_meta, l_min = pack_pyramid(mips)
-        self.proxy_pyr = torch.as_tensor(pyr).to(self.device).to(torch.bfloat16)
-        self.proxy_pyr_texels = interleave_pyramid(self.proxy_pyr)
+        self.proxy_pyr = sampler_pyramid(
+            torch.as_tensor(pyr).to(self.device).to(torch.bfloat16))
         self.proxy_pyr_meta = (pyr_meta, l_min)
 
     # ------------------------------------------------------------------ #
@@ -669,7 +665,6 @@ class Renderer:
         mip_pyr = None
         if not c.exact and self.proxy_pyr is not None:
             prox["pyr"] = self.proxy_pyr
-            prox["pyr_texels"] = self.proxy_pyr_texels
             mip_pyr = self.proxy_pyr_meta
         pcol, depth, hit, paux = render_proxy(
             cam_d, scene_d, p_wh, self.hm4, self.height_map_wh, prox,

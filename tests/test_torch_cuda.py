@@ -446,8 +446,7 @@ def test_mip_trilinear_kernel_matches_plain(cuda, size, p):
     rho = torch.from_numpy(rho).to(cuda)
     before = kernels.LAUNCHES["mip_trilinear"]
     got = texsample.factored_mip_trilinear(
-        planes, meta, l_min, u, v, rho,
-        texels=texsample.interleave_pyramid(planes))
+        texsample.sampler_pyramid(planes), meta, l_min, u, v, rho, n_ch=3)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["mip_trilinear"] == before + 1
     want = texsample.factored_mip_trilinear_plain(planes, meta, l_min, u, v,
@@ -478,7 +477,8 @@ def test_mip_trilinear_kernel_on_interleaved_texels(cuda, wh):
     t = lambda a: torch.from_numpy(a).to(cuda)
     args = (meta, l_min, t(u), t(v), t(rho))
     before = kernels.LAUNCHES["mip_trilinear"]
-    got = texsample.factored_mip_trilinear(planes, *args, texels=texels)
+    assert torch.equal(texsample.sampler_pyramid(planes), texels)
+    got = texsample.factored_mip_trilinear(texels, *args, n_ch=3)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["mip_trilinear"] == before + 1
     finite = slice(0, 6000)   # the plain version indexes raw taps: keep
@@ -498,16 +498,24 @@ def test_mip_trilinear_kernel_on_interleaved_texels(cuda, wh):
 
 
 def test_mip_trilinear_rejects_bad_texels(cuda):
+    """On the card the sampler takes the interleaved texels alone, with
+    their channel count: the planes, another dtype or width, a strided
+    view, a missing or impossible n_ch and unequal sample counts raise."""
     planes, meta, l_min, _ = _pyramid(64, 1, cuda)
     texels = texsample.interleave_pyramid(planes)
     u = torch.zeros(10, device=cuda)
-    for bad in (None, texels.float(), texels[:-1].contiguous()):
+    for bad in (planes, texels.float(), texels[..., :3].contiguous(),
+                texels.transpose(0, 1)):
         with pytest.raises(ValueError):
-            texsample.factored_mip_trilinear(planes, meta, l_min, u, u,
-                                             u + 1, texels=bad)
+            texsample.factored_mip_trilinear(bad, meta, l_min, u, u, u + 1,
+                                             n_ch=3)
+    for n_ch in (None, 0, 5):
+        with pytest.raises(ValueError):
+            texsample.factored_mip_trilinear(texels, meta, l_min, u, u,
+                                             u + 1, n_ch=n_ch)
     with pytest.raises(ValueError):
-        texsample.factored_mip_trilinear(planes, meta, l_min, u, u[:5], u,
-                                         texels=texels)
+        texsample.factored_mip_trilinear(texels, meta, l_min, u, u[:5], u,
+                                         n_ch=3)
 
 
 def _tri_rows(xs, ys, zs, attrs, device, image_wh, tile_wh):

@@ -26,6 +26,17 @@ IMG = (384, 256)
 TILE = (64, 32)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for these small tensors: under the suite's
+    parallel workers PyTorch's default pool (a thread per core in every
+    worker) oversubscribes the host, which made this file ~15x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _kw(chunk, image_wh=IMG):
     return dict(image_wh=image_wh, tile_wh=TILE, chunk=chunk)
 
@@ -184,3 +195,19 @@ def test_split_and_masked_rasters_match_jax_interpret():
     same = zd <= 1e-6
     assert np.abs(at - jat)[:, same].max() < 1e-5
     assert (z < 1.0).mean() > 0.05
+
+
+def test_mask_ab_takes_out_only_the_mask():
+    """benchmarks/trirast_mask_ab builds the kernel without its mask by
+    replacing the mask's one call: the call is found once, and the build
+    it makes keeps every pair in every block and changes nothing else."""
+    from gswt_renderer_tpu_torch.benchmarks import trirast_mask_ab as ab
+    from gswt_renderer_tpu_torch.ops import kernels
+
+    with open(f"{kernels.CSRC}/trirast.cu") as f:
+        src = f.read()
+    out = ab.unmasked_source()
+    assert src.count(ab.MASK_CALL) == 1
+    assert "pair_reaches_block(s_tab" not in out
+    assert out == src.replace(ab.MASK_CALL, "kFull")
+    assert "const unsigned m = kFull;" in out
