@@ -47,7 +47,10 @@ Phases, each printing its own line; any failure raises (non-zero exit):
 7. the benchmarks sub-package: its kernels against their plain versions at
    the micro-benchmarks' own shapes (sorted merge: keys equal to numpy's
    merge, payload rows and the sentinel tail bit-equal; micro-raster A, B, C,
-   C2, D at 1 << 22 pairs on 1080p: <= 1e-4 per channel each; both micro
+   C2, D at 1 << 22 pairs on 1080p: <= 1e-4 per channel each, with each
+   instantiation's registers and spill, each variant's share of (pair, warp
+   block) visits its mask keeps and the kept pair-pixels the mask leaves
+   out, counted on the card's tensors, failing unless 0; both micro
    block gathers bit-equal), then the three micro-benchmark scripts and the
    headline fly-through (1920x1080, 512 splats, 3 LODs, fast profile, 2
    repeats of the first 15 s leg through Engine.run_benchmark) through their
@@ -312,8 +315,11 @@ def main():
 
     # 2. build
     t0 = time.time()
-    reports = kernels.build_all()
-    print(f"[build] {len(reports)} kernels in {time.time() - t0:.1f} s")
+    built = kernels.build_all()
+    print(f"[build] {len(built)} kernels in {time.time() - t0:.1f} s")
+    # every kernel's ptxas report, kept beside its library (this run's
+    # build, or the one that built it)
+    reports = {name: kernels.ptxas_report(name) for name in kernels.KERNELS}
     for name, rep in reports.items():
         entry = ""
         for line in rep.splitlines():
@@ -1292,6 +1298,22 @@ def main():
     # output, each moved once; the plain version counts the pairs and the
     # kept pair-pixels. PR 4's convention (the exponent and compare on every
     # composited pair-pixel) is printed beside it.
+    # The kernel skips, per warp, the pairs its f64 block mask leaves out,
+    # with a margin for each precision: the plain version computes the same
+    # mask on the card's tensors and counts the (pair, warp block) visits it
+    # keeps and the kept pair-pixels it would leave out, which must be 0.
+    # Each instantiation's registers and spill come from the build's ptxas
+    # report.
+    mr_regs = micro_raster.ptxas_by_variant(reports["micro_raster"])
+    for (loc, prec_i, bf2_i), text in sorted(mr_regs.items()):
+        names = [n for n, (lo, pr, b2, _) in micro_raster.VARIANTS.items()
+                 if (int(lo), micro_raster.PRECISIONS.index(pr), int(b2))
+                 == (loc, prec_i, bf2_i)]
+        print(f"[build] micro_raster <kLocal={loc}, kPrec={prec_i}, "
+              f"kBf2={bf2_i}> {'/'.join(names) or '(no variant)'}: {text}")
+    if len(mr_regs) != 12:
+        raise RuntimeError(f"micro_raster: {len(mr_regs)} of 12 "
+                           f"instantiations in the ptxas report")
     mr_pairs, mr_chunk = 1 << 22, 256
     mr_binned = micro_raster.make_binned(mr_pairs, image_wh, tile_wh,
                                          device="cuda")
@@ -1320,6 +1342,7 @@ def main():
                        + 5 * n_tiles * p_n)
         mr_info[name] = dict(
             err=e, plain_ms=plain_ms, pairs=st["pairs"], kept_share=kept / pp,
+            visit_share=st["visits"] / st["blocks"],
             bound_ms=max(kept * (mr_ops[prec] + 1 + rest) / FP32_OPS_PER_S,
                          kept / SFU_OPS_PER_S,
                          n_bytes / HBM_BYTES_PER_S) * 1e3,
@@ -1332,6 +1355,14 @@ def main():
               f"{float(k_out[:, 3].mean()):.4f}, {st['pairs']} of "
               f"{int((mr_binned['key'] < n_tiles).sum())} pairs composited, "
               f"{kept} of {pp} pair-pixels kept ({kept / pp:.4f})")
+        print(f"[load] micro_raster {name}: the block mask (relative margin "
+              f"{micro_raster.MASK_REL[prec]!r}) keeps {st['visits']} of "
+              f"{st['blocks']} (pair, warp block) visits "
+              f"({st['visits'] / st['blocks']:.4f}); kept pair-pixels in "
+              f"blocks it leaves out: {st['missed']}")
+        if st["missed"]:
+            raise RuntimeError(f"micro_raster {name}: the block mask leaves "
+                               f"out {st['missed']} kept pair-pixels")
         if not (e <= RASTER_TOL and e_blown <= RASTER_TOL
                 and blown_share <= (0.5 if name == "D" else 0.0)
                 and torch.isfinite(k_out).all()):
@@ -1413,7 +1444,8 @@ def main():
             bound_by="operations",
             library_ms=None))  # no stock call composites a sorted pair table
         print(f"[kernel] micro_raster {name} {info['pairs']} pairs x {p_n} "
-              f"px, {info['kept_share']:.4f} of them kept: "
+              f"px, {info['kept_share']:.4f} of them kept, "
+              f"{info['visit_share']:.4f} of the (pair, block) visits: "
               f"{mr_res[name]['ms']:.3f} ms (plain {info['plain_ms']:.1f}, "
               f"bound {info['bound_ms']:.4f} from the kept pair-pixels; "
               f"PR 4's, the exponent on every one, "

@@ -16,18 +16,24 @@ Prints each variant's ms and its max |err| against A.
 Row 11 of the table is the raw alpha, which these variants multiply into
 exp(e) (the production compositor adds ln(alpha) in the exponent instead).
 On the card ``composite`` launches the kernel; on CPU tensors it runs
-``composite_plain``.
+``composite_plain``. The kernel has the production compositor's design
+(csrc/raster.cu): each of its 32 warps skips the pairs that cannot reach
+the cutoff in its block of the tile, by a per-pair f64 mask whose margin
+bounds the variant's own rounding of the exponent (``MASK_REL``);
+``composite_plain(block_mask=True)`` skips alike, to the same bits.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import re
 
 import numpy as np
 import torch
 
 from ..ops import kernels
+from ..ops import raster as traster
 from ..ops.binning import build_worklist, round_bf16, tile_ranges
 from ..ops.kernels import resolve_device
 from .timing import device_label, time_ms
@@ -35,8 +41,14 @@ from .timing import device_label, time_ms
 CUTOFF = -4.0
 MIN_T = 0.5 / 255.0
 MAX_CHUNK = 256          # the CUDA kernel stages one chunk in shared memory
-MAX_TILE_PIXELS = 2048   # 256 threads x 8 pixels
+MAX_TILE_PIXELS = 2048   # 1024 threads x 2 pixels
 PRECISIONS = ("highest", "split2", "default")
+# the block mask's relative margin per precision, above how far the
+# variant's own evaluation of the exponent can fall from the exact quadratic
+# of its f32 table, over the magnitude of its terms (csrc/micro_raster.cu
+# derives the bounds: f32 below 2^-21.4, split2 below 3.1 * 2^-16, default
+# below 2^-7 + 2^-16 + 2^-21.3)
+MASK_REL = {"highest": 2.0 ** -20, "split2": 2.0 ** -13, "default": 2.0 ** -6}
 # name -> (local, prec, bf2, description)
 VARIANTS = {
     "A": (False, "highest", False, "global feats, highest/highest"),
@@ -97,18 +109,72 @@ def _exponent(k, f, prec):
     return e + (_dot5(kh, fl) + (_dot5(kl, fh) + kl[5]))
 
 
+def block_reach(blk, tiles, rects, dmax, *, ntx, tile_wh, local, rel):
+    """[B, C, 32] bool: the kernel's pair-block mask for the pairs blk [16,
+    B, C] of tiles [B], with the kernel's f64 operations in its order.
+    Two tests, both conservative: the box, then ops/raster.py
+    pair_block_mask with the relative margin `rel` (the exact max of the
+    quadratic over the block). The box bounds the ellipse on which e
+    reaches the tile's lowest limit (its far corner's), its radius widened
+    by 2^-30 and 1 against f64 rounding; a block outside it is left out (a
+    pair whose peak is below that limit has an empty box; a quadratic that
+    is not negative definite has no box). The warp blocks' rectangles
+    `rects` from warp_layout are moved to each tile's origin unless `local`,
+    as the kernel moves them; dmax [B, 32] is each block's largest depth."""
+    tw, th = tile_wh
+    far = torch.tensor([tw - 0.5, th - 0.5], dtype=torch.float32,
+                       device=blk.device)
+    if not local:
+        ox = (tiles % ntx * tw).to(torch.float32)
+        oy = (torch.div(tiles, ntx, rounding_mode="floor")
+              * th).to(torch.float32)
+        org = torch.stack([ox, ox, oy, oy], dim=-1)[:, None, None]  # [B,1,1,4]
+        rects = rects + org
+        far = far + org[..., 1:3]
+    reach = traster.pair_block_mask(blk[:6], blk[6], rects, dmax[:, None, :],
+                                    rel=rel)
+    pk = traster.pair_peak(blk[:6])
+    u1_t, v1_t = far.double().unbind(-1)
+    _, lim_t = traster.mask_limit(pk, u1_t, v1_t, rel)
+    r = pk["ec"] - lim_t
+    open_ = pk["definite"] & (r > 0.0)
+    rp = torch.where(open_, r, 0.0) * (1.0 + 2.0 ** -30) + 1.0
+    inv = 2.0 * pk["half_inv"]
+    hx = torch.sqrt((rp * pk["c"]) * inv)
+    hy = torch.sqrt((rp * pk["a"]) * inv)
+    inf = torch.full_like(hx, torch.inf)
+
+    def edge(x, empty):
+        # x where the box is open, `empty` where the peak is below the
+        # limit, unbounded (-empty) where the quadratic is not definite
+        return torch.where(pk["definite"], torch.where(open_, x, empty),
+                           -empty)
+
+    xl, xr = edge(pk["uc"] - hx, inf), edge(pk["uc"] + hx, -inf)
+    yl, yr = edge(pk["vc"] - hy, inf), edge(pk["vc"] + hy, -inf)
+    u0, u1, v0, v1 = rects.double().unbind(-1)
+    return reach & (u0 <= xr) & (u1 >= xl) & (v0 <= yr) & (v1 >= yl)
+
+
 def composite_plain(binned, depth_tiles, *, image_wh, tile_wh, chunk: int,
-                    local: bool, prec: str, bf2: bool, stats=None):
+                    local: bool, prec: str, bf2: bool, block_mask=False,
+                    stats=None):
     """Plain PyTorch version of `composite`, in the kernel's order of
     operations. Worklist entries (tile, chunk) are processed rank by rank,
     so each tile's carried T is known before its next chunk starts; an entry
     is skipped when its tile's max carried T is below MIN_T. Within an entry
     the pairs are walked one by one, w = (g Tl) Tc then Tl *= 1 - g, as the
-    kernel's threads do. With `stats` (a dict) records under "pairs" the
-    pairs composited before the early exit, under "kept" the pair-pixels of
-    those that pass the cutoff and the depth test, and under "mag" [T, P] each
-    pixel's sum of |w|: the magnitude its four sums' rounding scales with (at
-    most 1 while every g lies in [0, 1])."""
+    kernel's threads do. block_mask=True skips, as the kernel does, the
+    pair-pixels of the warp blocks that the variant's mask (`block_reach`,
+    margin MASK_REL[prec]) leaves out: the result is the same to the bit.
+    With `stats` (a dict) records under "pairs" the pairs composited before
+    the early exit, under "kept" the pair-pixels of those that pass the
+    cutoff and the depth test, under "mag" [T, P] each pixel's sum of |w|
+    (the magnitude its four sums' rounding scales with: at most 1 while
+    every g lies in [0, 1]), under "visits" the (pair, warp block) visits
+    the mask keeps of "blocks" (pairs times the blocks with pixels), and
+    under "missed" the kept pair-pixels whose block the mask leaves out (0
+    when the mask is conservative)."""
     tw, th = tile_wh
     ntx, _, n_tiles = _grid(image_wh, tile_wh)
     p_n = tw * th
@@ -127,7 +193,13 @@ def composite_plain(binned, depth_tiles, *, image_wh, tile_wh, chunk: int,
     trans = torch.ones((n_tiles, p_n), dtype=torch.float32, device=dev)
     lane = torch.arange(chunk, device=dev)
     composited = torch.zeros((), dtype=torch.int64, device=dev)
-    kept = torch.zeros((), dtype=torch.int64, device=dev)
+    masked = block_mask or stats is not None
+    if masked:
+        rects, warp = traster.warp_layout(tile_wh, dev)
+        dmax = traster.warp_depth_max(depth_tiles, warp)
+        n_blocks = int((rects[:, 0] <= rects[:, 1]).sum())
+        # kept pair-pixels, (pair, block) visits kept, kept pair-pixels missed
+        load = torch.zeros(3, dtype=torch.int64, device=dev)
     mag = torch.zeros_like(trans) if stats is not None else None
     n_rank = int(rank.max()) + 1 if rank.numel() else 0
     for r in range(n_rank):
@@ -150,6 +222,16 @@ def composite_plain(binned, depth_tiles, *, image_wh, tile_wh, chunk: int,
                           [x * x, x * y, y * y, x, y], prec)
             mask = ((e >= CUTOFF) & in_run[..., None]
                     & (blk[6][..., None] < depth_tiles[tiles][:, None, :]))
+            if masked:
+                reach = block_reach(blk, tiles, rects, dmax[tiles], ntx=ntx,
+                                    tile_wh=tile_wh, local=local,
+                                    rel=MASK_REL[prec])
+                reach &= in_run[..., None]  # [B, C, 32]
+                px_reach = reach[..., warp]  # [B, C, P]
+                load += torch.stack([mask.sum(), reach.sum(),
+                                     (mask & ~px_reach).sum()])
+                if block_mask:
+                    mask &= px_reach
             g = torch.where(mask, torch.exp(e) * blk[11][..., None], 0.0)
             omg = 1.0 - g
             t_carry = trans[tiles]  # [B, P]
@@ -167,10 +249,11 @@ def composite_plain(binned, depth_tiles, *, image_wh, tile_wh, chunk: int,
             trans[tiles] = t_carry * t_loc
             composited += in_run.sum()
             if stats is not None:
-                kept += mask.sum()
                 mag[tiles] += weight.abs().sum(dim=1)
     if stats is not None:
-        stats.update(pairs=int(composited), kept=int(kept), mag=mag)
+        kept, visits, missed = (int(x) for x in load)
+        stats.update(pairs=int(composited), kept=kept, mag=mag, visits=visits,
+                     blocks=int(composited) * n_blocks, missed=missed)
     return acc
 
 
@@ -186,7 +269,10 @@ def composite(binned, depth_tiles, *, image_wh, tile_wh, chunk: int,
     "split2" or "default", the exponent's precision; bf2: colours and
     weights rounded to bf16 before the f32 sums.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    which stages whole chunks with 16-B aligned bulk copies: it takes chunk
+    a multiple of 4 and a 16-B aligned table whose dom is a multiple of
+    chunk, and raises on any other."""
     if prec not in PRECISIONS:
         raise ValueError(f"prec must be one of {PRECISIONS}")
     kw = dict(image_wh=image_wh, tile_wh=tile_wh, chunk=chunk, local=local,
@@ -197,14 +283,17 @@ def composite(binned, depth_tiles, *, image_wh, tile_wh, chunk: int,
     tw, th = tile_wh
     ntx, _, n_tiles = _grid(image_wh, tile_wh)
     p_n = tw * th
-    if chunk > MAX_CHUNK or p_n > MAX_TILE_PIXELS:
-        raise ValueError(f"the CUDA kernel takes chunk <= {MAX_CHUNK} and "
-                         f"tiles of <= {MAX_TILE_PIXELS} pixels")
+    if chunk > MAX_CHUNK or chunk % 4 or p_n > MAX_TILE_PIXELS:
+        raise ValueError(f"the CUDA kernel takes chunk <= {MAX_CHUNK}, a "
+                         f"multiple of 4, and tiles of <= {MAX_TILE_PIXELS} "
+                         f"pixels")
     rs, re_ = binned["range_start"], binned["range_end"]
     dev = table.device
     if (table.dtype != torch.float32 or not table.is_contiguous()
-            or table.shape[0] != 16):
-        raise ValueError("table must be a contiguous float32 [16, dom]")
+            or table.shape[0] != 16 or table.shape[1] % chunk
+            or table.data_ptr() % 16):
+        raise ValueError("table must be a contiguous, 16-B aligned float32 "
+                         "[16, dom] with dom a multiple of chunk")
     for name, t in (("range_start", rs), ("range_end", re_)):
         if (t.dtype != torch.int32 or not t.is_contiguous()
                 or t.shape != (n_tiles,) or t.device != dev):
@@ -226,6 +315,20 @@ def composite(binned, depth_tiles, *, image_wh, tile_wh, chunk: int,
     kernels.LAUNCHES["micro_raster"] += 1
     kernels.check(rc, "micro_raster")
     return out
+
+
+def ptxas_by_variant(report: str) -> dict:
+    """{(local, prec index, bf2): "stack and spill; registers and shared
+    memory"} for each micro_raster_kernel instantiation in a -Xptxas -v
+    report of csrc/micro_raster.cu (kernels.ptxas_report)."""
+    regs, inst = {}, None
+    for line in report.splitlines():
+        hit = re.search(r"micro_raster_kernelILb(\d)ELi(\d)ELb(\d)E", line)
+        if "Compiling entry function" in line:
+            inst = tuple(int(x) for x in hit.groups()) if hit else None
+        elif inst is not None and ("registers" in line or "spill" in line):
+            regs.setdefault(inst, []).append(line.split(":")[-1].strip())
+    return {k: "; ".join(v) for k, v in regs.items()}
 
 
 def make_binned(max_pairs, image_wh, tile_wh, seed=0, device="cpu"):

@@ -75,9 +75,24 @@ def _stale(name: str) -> bool:
     return not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src)
 
 
+def _report_path(name: str) -> str:
+    return os.path.join(BUILD, f"lib{name}.ptxas.txt")
+
+
+def ptxas_report(name: str) -> str:
+    """The -Xptxas -v report (registers, shared memory and spill of every
+    kernel) of the build of `name` in BUILD, or "" if there is none."""
+    try:
+        with open(_report_path(name)) as f:
+            return f.read()
+    except FileNotFoundError:
+        return ""
+
+
 def build_all(names=KERNELS) -> dict:
-    """Compile every stale kernel library, all nvcc processes at once.
-    Returns {name: ptxas report} for the ones it compiled."""
+    """Compile every stale kernel library, all nvcc processes at once, and
+    keep each one's ptxas report beside it (ptxas_report). Returns {name:
+    ptxas report} for the ones it compiled."""
     os.makedirs(BUILD, exist_ok=True)
     procs = {}
     for name in names:
@@ -93,6 +108,8 @@ def build_all(names=KERNELS) -> dict:
         if proc.returncode != 0:
             failed.append(f"{name}:\n{out}")
             continue
+        with open(_report_path(name), "w") as f:
+            f.write(out)
         os.replace(tmp, _so_path(name))
         reports[name] = out
     if failed:

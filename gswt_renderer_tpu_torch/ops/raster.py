@@ -136,25 +136,15 @@ def _rect_min_q(a, b, c, rba, rbc, lx0, lx1, ly0, ly1):
     return torch.where(inside, 0.0, m)
 
 
-def pair_block_mask(k, z, rects, dmax=None):
-    """The kernel's per-pair warp-block mask (csrc/raster.cu
-    pair_block_mask), with the same f64 operations in the same order.
-
-    k: 6 tensors (the table rows k0..k5) of one shape [...]; z the same
-    shape; rects from warp_layout; dmax (optional, broadcastable to [...,
-    32]): each block's largest depth, for use_depth. Returns [..., 32] bool:
-    False only where no pixel centre of the block can give e >= CUTOFF in
-    the kernel's f32 evaluation of the exponent (or, with dmax, z < depth).
-
-    The bound: the max of e over the block's rectangle is the peak e_c less
-    the min of the positive definite -e + e_c over the rectangle shifted to
-    the centre; the centre and e_c come from the f32 coefficients by exact
-    f64 products, one rounded subtraction and one division. It is tested
-    against CUTOFF - 1 - 2^-20 S, S the magnitude of the terms (those the
-    kernel sums at the block's far corner, and those e_c sums). A quadratic
-    that is not negative definite gets the block unless the trivial bound
-    k5 + sum |k_i| m_i (m_i the block's largest monomials) is below the
-    limit; so a dead pair (k5 = -1e30) gets none."""
+def pair_peak(k):
+    """The per-pair set-up of the kernel's mask (csrc/raster.cu
+    pair_block_mask), in f64 with the same operations in the same order.
+    k: 6 tensors (the table rows k0..k5) of one shape [...]. Returns a dict
+    of [..., 1] tensors: "k" the six coefficients, (a, b, c) the form of
+    -e's quadratic part (Q = a x^2 + 2 b xy + c y^2), "det" = ac - b^2,
+    "half_inv" = 0.5 / det, "definite" (a > 0 and det > 0), and where
+    definite (0 elsewhere) the centre (uc, vc), the peak "ec", the
+    magnitude "mc" of the terms ec sums, and b / a, b / c."""
     k0, k1, k2, k3, k4, k5 = (t.double()[..., None] for t in k)
     a, b, c = -k0, -0.5 * k1, -k2
     det = a * c - b * b
@@ -169,12 +159,54 @@ def pair_block_mask(k, z, rects, dmax=None):
     rbc = b / torch.where(definite, c, 1.0)
     zero = torch.zeros((), dtype=torch.float64, device=det.device)
     uc, vc, ec, mc = (torch.where(definite, t, zero) for t in (uc, vc, ec, mc))
-    u0, u1, v0, v1 = rects.double().unbind(1)
+    return dict(k=(k0, k1, k2, k3, k4, k5), a=a, b=b, c=c, det=det,
+                half_inv=half_inv, definite=definite, uc=uc, vc=vc, ec=ec,
+                mc=mc, rba=rba, rbc=rbc)
+
+
+def mask_limit(pk, u1, v1, rel=_MASK_REL):
+    """(s5, lim) of the mask at a rectangle whose far corner is (u1, v1)
+    (f64): s5 the sum of |k_i| times the largest monomials there (every
+    monomial grows with u and v), lim = CUTOFF - 1 - rel S with S = s5 +
+    |k5| + mc, for pair_peak's pk."""
+    k0, k1, k2, k3, k4, k5 = pk["k"]
     s5 = ((((k0.abs() * (u1 * u1) + k1.abs() * (u1 * v1))
             + k2.abs() * (v1 * v1)) + k3.abs() * u1) + k4.abs() * v1)
-    lim = CUTOFF - (_MASK_MARGIN + _MASK_REL * ((s5 + k5.abs()) + mc))
-    rmin = _rect_min_q(a, b, c, rba, rbc, u0 - uc, u1 - uc, v0 - vc, v1 - vc)
-    reach = ~(k5 + s5 < lim) & (~definite | ~(ec - rmin < lim))
+    lim = CUTOFF - (_MASK_MARGIN + rel * ((s5 + k5.abs()) + pk["mc"]))
+    return s5, lim
+
+
+def pair_block_mask(k, z, rects, dmax=None, rel=_MASK_REL):
+    """The kernel's per-pair warp-block mask (csrc/raster.cu
+    pair_block_mask), with the same f64 operations in the same order.
+
+    k: 6 tensors (the table rows k0..k5) of one shape [...]; z the same
+    shape; rects [..., 32, 4] from warp_layout (broadcast against k[...,
+    None], so a batch may carry rectangles of its own); dmax (optional,
+    broadcastable to [..., 32]): each block's largest depth, for use_depth;
+    rel: the limit's relative margin (the compositor's 2^-20 by default;
+    the micro-benchmark's variants pass the one of their own precision).
+    Returns [..., 32] bool:
+    False only where no pixel centre of the block can give e >= CUTOFF in
+    the kernel's f32 evaluation of the exponent (or, with dmax, z < depth).
+
+    The bound: the max of e over the block's rectangle is the peak e_c less
+    the min of the positive definite -e + e_c over the rectangle shifted to
+    the centre; the centre and e_c come from the f32 coefficients by exact
+    f64 products, one rounded subtraction and one division. It is tested
+    against CUTOFF - 1 - rel S, S the magnitude of the terms (those the
+    kernel sums at the block's far corner, and those e_c sums). A quadratic
+    that is not negative definite gets the block unless the trivial bound
+    k5 + sum |k_i| m_i (m_i the block's largest monomials) is below the
+    limit; so a dead pair (k5 = -1e30) gets none."""
+    pk = pair_peak(k)
+    k5 = pk["k"][5]
+    uc, vc = pk["uc"], pk["vc"]
+    u0, u1, v0, v1 = rects.double().unbind(-1)
+    s5, lim = mask_limit(pk, u1, v1, rel)
+    rmin = _rect_min_q(pk["a"], pk["b"], pk["c"], pk["rba"], pk["rbc"],
+                       u0 - uc, u1 - uc, v0 - vc, v1 - vc)
+    reach = ~(k5 + s5 < lim) & (~pk["definite"] | ~(pk["ec"] - rmin < lim))
     reach &= u0 <= u1
     if dmax is not None:
         reach &= z[..., None] < dmax

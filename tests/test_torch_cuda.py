@@ -819,11 +819,18 @@ def test_micro_raster_variant_matches_plain(cuda, name, size):
     # the early exit must have fired for the comparison to cover it
     assert 0 < stats["pairs"] < int((binned["key"] < n_tiles).sum())
     assert bool(torch.isfinite(got).all()) and float(got[:, 3].mean()) > 0.3
-    # absolute wherever a pixel's sum of |w| stays at 1: every pixel of A,
-    # B, C and C2. D's bf16 exponent can come out positive, g exceeds 1, T
-    # changes sign, and such a pixel's sums are signed terms far outside
-    # [0, 1] that partly cancel: those pixels alone are held relative to
-    # their own sum of |w|, which bounds the f32 rounding of the sums
+    _assert_micro_close(name, got, want, stats)
+
+
+def _assert_micro_close(name, got, want, stats):
+    """The micro-raster tolerance: absolute wherever a pixel's sum of |w|
+    stays at 1, every pixel of A, B, C and C2. D's bf16 exponent can come
+    out positive, g exceeds 1, T changes sign, and such a pixel's sums are
+    signed terms far outside [0, 1] that partly cancel: those pixels alone
+    are held relative to their own sum of |w|, which bounds the f32
+    rounding of the sums. The plain version's mask, which the kernel's
+    mirrors, leaves out no kept pair-pixel."""
+    assert stats["missed"] == 0
     mag = stats["mag"][:, None, :]
     blown = mag > 1.01
     if name != "D":
@@ -832,6 +839,63 @@ def test_micro_raster_variant_matches_plain(cuda, name, size):
     diff = (got - want).abs()
     assert float(diff[~blown.expand_as(diff)].max()) <= TOL
     assert float((diff / mag.clamp(min=1.0)).max()) <= TOL
+
+
+@pytest.mark.parametrize("chunk", [256, 128, 32])
+@pytest.mark.parametrize("name", ["A", "B", "C", "C2", "D"])
+def test_micro_raster_on_adversarial_tables(cuda, name, chunk):
+    """The kernel's warp-block mask (the variant's own margin), warp-uniform
+    skip and bulk-copy ring against the plain version on needle-thin,
+    edge-on, sub-pixel, tile-sized, off-tile, non-definite and dead pairs,
+    half of them peaking just around the cutoff in the variant's own
+    precision: the 16x4-block layout (64x32) and the flat one (100x20),
+    under depth 1 and a random depth."""
+    from gswt_renderer_tpu_torch.benchmarks import micro_raster as mr
+    from torch_tables import adversarial_micro_binned
+
+    for tile_wh in ((64, 32), (100, 20)):
+        b, image_wh, kw = adversarial_micro_binned(5, name, tile_wh)
+        b = {k: v.to(cuda) for k, v in b.items()}
+        n_tiles, p_n = b["range_start"].shape[0], tile_wh[0] * tile_wh[1]
+        kw.update(image_wh=image_wh, tile_wh=tile_wh, chunk=chunk)
+        rand = torch.rand((n_tiles, p_n), device=cuda,
+                          generator=torch.Generator(device=cuda).manual_seed(2))
+        for depth in (torch.ones_like(rand), rand):
+            before = kernels.LAUNCHES["micro_raster"]
+            got = mr.composite(b, depth, **kw)
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["micro_raster"] == before + 1
+            stats = {}
+            want = mr.composite_plain(b, depth, stats=stats, **kw)
+            assert bool(torch.isfinite(got).all())
+            assert float(want[:, 3].max()) > 0.5
+            _assert_micro_close(name, got, want, stats)
+
+
+def test_micro_raster_rejects_tables_it_cannot_stage(cuda):
+    """The staging copies move whole 16-B aligned chunks: chunk must be a
+    multiple of 4, dom a multiple of chunk and the table 16-B aligned."""
+    from gswt_renderer_tpu_torch.benchmarks import micro_raster as mr
+
+    image_wh, tile_wh = (128, 64), (64, 32)
+    binned = mr.make_binned(1 << 12, image_wh, tile_wh, seed=1, device=cuda)
+    depth = torch.ones((4, 2048), device=cuda)
+    kw = dict(image_wh=image_wh, tile_wh=tile_wh, local=False,
+              prec="highest", bf2=False)
+    table = binned["table"]
+    with pytest.raises(ValueError):
+        mr.composite(binned, depth, chunk=126, **kw)
+    with pytest.raises(ValueError):
+        mr.composite(dict(binned, table=table[:, :1000].contiguous()),
+                     depth, chunk=128, **kw)
+    shifted = torch.empty(16 * table.shape[1] + 1, device=cuda)[1:]
+    shifted = shifted.view(16, table.shape[1])
+    shifted.copy_(table)
+    with pytest.raises(ValueError):
+        mr.composite(dict(binned, table=shifted), depth, chunk=128, **kw)
+    before = kernels.LAUNCHES["micro_raster"]
+    mr.composite(binned, depth, chunk=128, **kw)
+    assert kernels.LAUNCHES["micro_raster"] == before + 1
 
 
 # the compositor's warp-block mask and staging ring (csrc/raster.cu) on

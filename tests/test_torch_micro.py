@@ -54,6 +54,17 @@ TOL = {"A": (5e-4, 1e-5), "C2": (5e-5, 1e-6),
        "B": (BF16_STEP + 5e-4, 5e-5), "C": (BF16_STEP + 5e-5, 1e-6)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for these small tensors: under the suite's
+    parallel workers PyTorch's default pool (a thread per core in every
+    worker) oversubscribes the host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.lru_cache(maxsize=None)
 def _inputs():
     binned = tmr.make_binned(PAIRS, IMAGE_WH, TILE_WH, seed=0)
@@ -126,13 +137,13 @@ def _bf16(x):
         torch.bfloat16).to(torch.float32).numpy()
 
 
-def test_micro_raster_default_precision_matches_its_stated_semantics():
-    """Variant D: tile-local monomials, coefficients and monomials each
-    rounded to bf16 once, products summed in f32 left to right; colours and
-    weights rounded to bf16, f32 sums. A numpy composite, pixel-parallel and
-    pair by pair, of exactly that."""
+def _default_semantics(b):
+    """Variant D over _inputs() with its table `b` (recentred): tile-local
+    monomials, coefficients and monomials each rounded to bf16 once,
+    products summed in f32 left to right; colours and weights rounded to
+    bf16, f32 sums. A numpy composite, pixel-parallel and pair by pair, of
+    exactly that."""
     binned, depth = _inputs()
-    b, got = _port_variant("D")
     table = b["table"].numpy()
     rs, re_ = binned["range_start"].numpy(), binned["range_end"].numpy()
     tw = TILE_WH[0]
@@ -164,6 +175,14 @@ def test_micro_raster_default_precision_matches_its_stated_semantics():
             want[t, :3] += col[:, j, None] * w
             want[t, 3] += w
             t_loc = t_loc * (np.float32(1.0) - g)
+    return want
+
+
+def test_micro_raster_default_precision_matches_its_stated_semantics():
+    """Variant D against _default_semantics, to one bf16 step of a
+    weight."""
+    b, got = _port_variant("D")
+    want = _default_semantics(b)
     diff = np.abs(got - want)
     assert want[:, 3].mean() > 0.5
     assert diff.max() <= BF16_STEP + 5e-5 and diff.mean() <= 5e-5, (

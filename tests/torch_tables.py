@@ -228,3 +228,90 @@ def binned_triangles(tris, image_wh=(384, 256), tile_wh=(64, 32),
         torch.ones(xs.shape[1], dtype=torch.bool, device=device))
     return ttri.bin_triangles(planes, bbox, ok, image_wh=image_wh,
                               tile_wh=tile_wh)
+
+
+def adversarial_micro_binned(seed, name, tile_wh, grid=(2, 2)):
+    """The micro-benchmark's table (benchmarks/micro_raster.py make_binned's
+    layout: the exponent quadratic at global pixel coordinates in rows 0-5,
+    z in row 6, colours in rows 8-10, the raw alpha in row 11) of
+    adversarial_pairs around each of grid[0] x grid[1] tiles, as variant
+    `name` reads it (recentred for the local variants). Every tile's run
+    holds its own pairs, a few of them dead (k5 = -1e30, alpha 0); the runs
+    start off chunk boundaries and dom is a multiple of 256. Every other
+    pair has k5 moved so that its peak over its tile's pixel centres, in
+    the variant's own precision, lands within 0.05 of the cutoff (as near
+    as the f32 k5 allows); of the rest, a pair whose own exponent passes 0
+    somewhere is dropped (no g above its alpha). Returns (binned, image_wh,
+    kw), kw the variant's keywords for composite."""
+    from gswt_renderer_tpu_torch.benchmarks import micro_raster as tmr
+
+    tw, th = tile_wh
+    ntx, nty = grid
+    n_tiles = ntx * nty
+    image_wh = (ntx * tw, nty * th)
+    rng = np.random.default_rng(seed)
+    cols, owner = [], []
+    for t in range(n_tiles):
+        cx, cy, qa, qb, qc = (x.astype(np.float64) for x in adversarial_pairs(
+            seed * 10 + t))
+        cx = cx + (t % ntx) * tw
+        cy = cy + (t // ntx) * th
+        n = cx.shape[0]
+        k5 = -(qa * cx * cx + 2 * qb * cx * cy + qc * cy * cy)
+        dead = rng.random(n) < 0.05
+        tab = np.zeros((16, n), np.float32)
+        for i, v in enumerate([-qa, -2 * qb, -qc, 2 * qa * cx + 2 * qb * cy,
+                               2 * qb * cx + 2 * qc * cy,
+                               np.where(dead, -1e30, k5),
+                               rng.uniform(0, 1, n), np.zeros(n),
+                               *rng.uniform(0, 1, (3, n)),
+                               np.where(dead, 0.0, rng.uniform(0, 0.8, n))]):
+            tab[i] = v
+        cols.append(torch.from_numpy(tab))
+        owner.append(torch.full((n,), t, dtype=torch.int64))
+    table, pair_tile = torch.cat(cols, 1), torch.cat(owner)
+    b, kw = tmr.variant_inputs(dict(table=table, pair_tile=pair_tile), name,
+                               image_wh=image_wh, tile_wh=tile_wh)
+    table = b["table"]
+    # the peaks in the variant's own precision, at its own coordinates
+    pix = torch.arange(tw * th)
+    px = (pix % tw).to(torch.float32)
+    py = torch.div(pix, tw, rounding_mode="floor").to(torch.float32)
+    runs = []
+    for t in range(n_tiles):
+        tab = table[:, pair_tile == t].clone()
+        ox, oy = (0.0, 0.0) if kw["local"] else (
+            float((t % ntx) * tw), float((t // ntx) * th))
+        x, y = (px + ox) + 0.5, (py + oy) + 0.5
+        mono = [m[None] for m in (x * x, x * y, y * y, x, y)]
+
+        def peak(tab):
+            e = tmr._exponent([r[:, None] for r in tab[:6]], mono, kw["prec"])
+            return e.amax(1)
+
+        e_max = peak(tab)
+        live = tab[5] > -1e29
+        near = ((torch.arange(tab.shape[1]) % 2 == 0) & live
+                & torch.isfinite(e_max))
+        shift = torch.from_numpy(rng.uniform(-0.05, 0.05, tab.shape[1])
+                                 .astype(np.float32))
+        tab[5] = torch.where(near, tab[5] + (tmr.CUTOFF - e_max) + shift,
+                             tab[5])
+        runs.append(tab[:, ~(live & ~(peak(tab) <= 0.0))])
+    n = 3  # a few dead columns before the first run
+    parts, rs, re_ = [torch.zeros((16, n))], [], []
+    for tab in runs:
+        parts.append(tab)
+        rs.append(n)
+        n += tab.shape[1]
+        re_.append(n)
+    parts.append(torch.zeros((16, -(-n // 256) * 256 - n)))
+    table = torch.cat(parts, 1)
+    dead = torch.ones(table.shape[1], dtype=torch.bool)
+    for a, b_ in zip(rs, re_):
+        dead[a:b_] = False
+    table[5] = torch.where(dead, -1e30, table[5])
+    binned = dict(table=table.contiguous(),
+                  range_start=torch.tensor(rs, dtype=torch.int32),
+                  range_end=torch.tensor(re_, dtype=torch.int32))
+    return binned, image_wh, kw
