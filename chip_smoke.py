@@ -54,7 +54,21 @@ Phases, each printing its own line; any failure raises (non-zero exit):
    block gathers bit-equal), then the three micro-benchmark scripts and the
    headline fly-through (1920x1080, 512 splats, 3 LODs, fast profile, 2
    repeats of the first 15 s leg through Engine.run_benchmark) through their
-   main(), each in a launch-count window of its own.
+   main(), each in a launch-count window of its own; the sorted merge's
+   tournament timed as the median of 7 event windows beside its byte bound;
+8. parallel: on the exact frame, the stream cut into 4 segments rendered in
+   turn and folded (parallel/batched.py render_stream_segments), up to 4
+   calls of the cut's feedback, against Renderer.render of the same plan
+   (max |err| <= 1e-3 + MIN_T, mean < 1e-4; pairs per segment within 1.5x
+   of each other and within 5% of the frame's in sum), and dp = sp = 1
+   through an NCCL group of one (a batch of 4 distinct cameras and the
+   sharded stream, bit-equal); the same 4 segments on the fast frame within
+   the limit derived at SEG_FAST_TOL;
+9. viewer: the HTTP server over the fast 1080p Engine in a thread (3
+   distinct 960x540 JPEGs while the camera moves, /hud, /bench over 2
+   recorded keyframes, /quit, no render-loop error), the CLI's render (the
+   demo fly path at 2 fps, 1080p PNGs) and bench; then batched_ab and a
+   two-entry sweep_shapes through their main().
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Needs a CUDA device and the repository's
@@ -113,6 +127,16 @@ SAMPLER_TOL = 1e-6
 # the triangle raster's attributes, relative: a tie's sum may be taken in
 # another order
 TRIRAST_ATTR_RTOL = 1e-5
+# the stream segments folded against the single frame. Exact profile: 1e-3
+# of f32 association plus MIN_T, the weight of the tail pairs a later
+# segment (its T restarting at 1) composites past the single frame's early
+# exit (__graft_entry__.py's dry-run limit); mean < 1e-4. Fast profile: each
+# weight w = g T is rounded to bf16 (relative 2^-9) on the segment's LOCAL T,
+# the single frame's on the global T, so a weight differs by at most 2^-8 of
+# itself, a pixel's colour by at most 2^-8 of its alpha (<= 1), on top of
+# the exact limit
+SEG_TOL = 1e-3 + MIN_T
+SEG_FAST_TOL = 2.0 ** -8 + SEG_TOL
 N_FRAMES = 24      # the main path: fast-profile full-config frames
 N_FRAMES_EXACT = 8  # exact-profile full-config frames (slice 2's path, cut)
 N_FRAMES_GS = 4    # exact-profile gs-only frames (slice 1's path, cut)
@@ -132,6 +156,25 @@ def _time_ms(torch, fn, reps: int) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def _median_ms(torch, fn, windows: int = 7, reps: int = 10):
+    """(median, all) of the mean device time of fn over `windows` CUDA-event
+    windows of `reps` back-to-back calls each, after one warm-up call: a
+    steadier figure than one window's mean."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(windows):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b) / reps)
+    return float(np.median(out)), out
 
 
 def phase_reference(torch):
@@ -283,6 +326,236 @@ def phase_profile(torch, eng, fp, label, n: int = 4):
           f"{sum(e.count for e in kernels_) / n:.0f} per frame")
 
 
+def phase_parallel(torch, eng, need, label, *, gate, layers):
+    """[parallel] on one Engine's frame (its staged plan, camera and
+    textures, skybox + proxy): render_stream_segments at n_seg = 4 against
+    Renderer.render of the same plan, 2 to 4 calls with the cut's feedback
+    (until the pairs per segment are within 1.5x), in a launch window of
+    its own. gate: (max |err| limit, mean limit or
+    None); layers: the background's kernels that must run in every call.
+    Returns (max err, mean err, pairs of the last call)."""
+    from gswt_renderer_tpu_torch.ops import kernels
+    from gswt_renderer_tpu_torch.parallel import render_stream_segments
+
+    r, staged, cam = eng.renderer, eng._staged, eng.camera
+    sp, rc = eng.scene_params, eng.render_config
+    full = dict(use_skybox=True, use_proxy=True)
+    ref = r.render(None, cam, sp, rc, staged=staged, as_numpy=False, **full)
+    kept = int(r.last_aux["n_pairs_kept"])
+    r.__dict__.pop("_sp_feedback", None)
+    kernels.LAUNCHES.clear()
+    for call in range(1, 5):
+        img = render_stream_segments(r, staged, sp, cam, 4, rc, **full)
+        pairs = r.last_shard_pairs_kept
+        print(f"[parallel] {label} n_seg=4 call {call}: cut "
+              f"{r.last_sp_bounds}, pairs per segment {pairs} (sum "
+              f"{sum(pairs)}, the single frame {kept}, max/min "
+              f"{max(pairs) / max(min(pairs), 1):.3f})")
+        # at least one call on the cut the feedback set
+        if call > 1 and min(pairs) > 0 and max(pairs) <= 1.5 * min(pairs):
+            break
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    need(launches, ("block_gather", "raster"), 4 * call, f"{label} segments")
+    need(launches, layers, call, f"{label} segmented frames")
+    if "mip_trilinear" not in layers and launches.get("mip_trilinear", 0):
+        raise RuntimeError(f"[parallel] {label}: mip_trilinear ran; this "
+                           f"profile samples the proxy through the atlas")
+    diff = (img - ref).abs()
+    err, mean = float(diff.amax()), float(diff.mean())
+    print(f"[parallel] {label} n_seg=4 against Renderer.render of the same "
+          f"plan: max |err| {err:.3e} (limit {gate[0]:.3e}), mean {mean:.3e}"
+          f"{'' if gate[1] is None else f' (limit {gate[1]:.0e})'}; "
+          f"launches {launches} in {call} calls, per segment "
+          f"{ {k: v / (4 * call) for k, v in launches.items()} }")
+    if not (bool(torch.isfinite(img).all()) and err <= gate[0]
+            and (gate[1] is None or mean < gate[1])):
+        raise RuntimeError(f"[parallel] {label}: the folded segments are not "
+                           f"the single frame")
+    if not (min(pairs) > 0 and max(pairs) <= 1.5 * min(pairs)
+            and abs(sum(pairs) - kept) <= 0.05 * kept):
+        raise RuntimeError(f"[parallel] {label}: pairs per segment {pairs} "
+                           f"unbalanced or off the frame's {kept}")
+    return err, mean, pairs
+
+
+def phase_nccl(torch, eng, need):
+    """[parallel] dp = sp = 1 through a real NCCL group of one: a batch of 4
+    distinct cameras and the stream path, each against Renderer.render of
+    the same plan, bit-equal (same kernels, same inputs)."""
+    from gswt_renderer_tpu_torch.core import Camera
+    from gswt_renderer_tpu_torch.ops import kernels
+    from gswt_renderer_tpu_torch.parallel import (
+        render_cameras_sharded, render_stream_sharded)
+    from gswt_renderer_tpu_torch.parallel.batched import (
+        group_of_one, pack_camera_batch)
+
+    r, staged, c0 = eng.renderer, eng._staged, eng.camera
+    sp, rc = eng.scene_params, eng.render_config
+    full = dict(use_skybox=True, use_proxy=True)
+    cams = [Camera(c0.viewport, c0.position + np.float32([0.5 * i, 0, 0]),
+                   c0.target + np.float32([0.5 * i, 0, 0]), c0.up, c0.fovy,
+                   c0.z_near, c0.z_far) for i in range(4)]
+    kernels.LAUNCHES.clear()
+    with group_of_one("cuda") as mesh:
+        backend = torch.distributed.get_backend()
+        imgs = render_cameras_sharded(
+            r, staged, sp, pack_camera_batch(r, sp, cams, rc), mesh, rc,
+            **full)
+        img = render_stream_sharded(r, staged, sp, cams[0], mesh, rc, **full)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+    need(launches, ("block_gather", "raster", "trirast", "bilinear"), 5,
+         "dp batch and sp frame")
+    errs = []
+    for i, c in enumerate(cams):
+        ref = r.render(None, c, sp, rc, staged=staged, as_numpy=False, **full)
+        errs.append(float((imgs[i] - ref).abs().amax()))
+        if i == 0:
+            sp_equal = bool(torch.equal(img, ref))
+        if not torch.equal(imgs[i], ref):
+            raise RuntimeError(f"[parallel] dp camera {i} is not bit-equal "
+                               f"to Renderer.render")
+    print(f"[parallel] {backend} group of one, mesh {tuple(mesh.shape)}: "
+          f"dp batch {tuple(imgs.shape)} max |err| per camera {errs} "
+          f"(bit-equal), sp frame bit-equal {sp_equal}; launches {launches}")
+    if not sp_equal or backend != "nccl":
+        raise RuntimeError("[parallel] the NCCL stream path is not the "
+                           "plain frame")
+
+
+def phase_viewer(torch, eng, need, per_frame):
+    """[viewer] serve() in a thread over the fast-profile 1080p Engine:
+    /frame.jpg until 3 distinct JPEGs (each 960x540) while the camera moves,
+    /hud, a /bench over 2 recorded keyframes, /quit; fails on a render-loop
+    error. Returns the /bench answer."""
+    import io
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from PIL import Image
+
+    from gswt_renderer_tpu_torch.ops import kernels
+    from gswt_renderer_tpu_torch.viewer.server import serve
+
+    stop, ready, bound = threading.Event(), threading.Event(), {}
+
+    def on_bound(port):
+        bound["port"] = port
+        ready.set()
+
+    def call(path, body=None, timeout=120):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{bound['port']}{path}",
+            data=None if body is None else json.dumps(body).encode(),
+            method="GET" if body is None else "POST")
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.read()
+
+    kernels.LAUNCHES.clear()
+    t0 = time.time()
+    th = threading.Thread(target=serve, args=(eng, "127.0.0.1", 0),
+                          kwargs=dict(stream_ms=50.0, stop_event=stop,
+                                      on_bound=on_bound), daemon=True)
+    th.start()
+    try:
+        if not ready.wait(30):
+            raise RuntimeError("[viewer] the server did not bind")
+        call("/key", {"key": "w", "pressed": True})
+        jpgs = []
+        while len(set(jpgs)) < 3 and time.time() - t0 < 90:
+            try:
+                jpgs.append(call("/frame.jpg"))
+            except urllib.error.HTTPError:  # 503 before the first grab
+                pass
+            time.sleep(0.1)
+        call("/key", {"key": "w", "pressed": False})
+        sizes = {Image.open(io.BytesIO(j)).size for j in set(jpgs)}
+        hud = json.loads(call("/hud"))
+        call("/flypath", {"action": "clear"})
+        call("/flypath", {"action": "record"})
+        pos = eng.camera.position + np.float32([2.0, 6.0, 0.0])
+        call("/camera", {"position": pos.tolist()})
+        call("/flypath", {"action": "record", "interval": 2.0})
+        bench = json.loads(call("/bench", {}, timeout=300))
+        hud_end = json.loads(call("/hud"))
+        call("/quit", {})
+    finally:
+        stop.set()
+        th.join(30)
+    launches = dict(kernels.LAUNCHES)
+    print(f"[viewer] {len(set(jpgs))} distinct JPEGs of {len(jpgs)} fetched, "
+          f"sizes {sorted(sizes)}; /hud fps {hud['fps']:.2f}, frame "
+          f"{hud['frame_ms']:.2f} ms, display {hud['display_fps']:.2f} fps, "
+          f"splats {hud['splats']}, render errors {hud_end['render_errors']}")
+    print(f"[viewer] /bench over 2 keyframes: {bench['frames']} frames, "
+          f"median {bench['median_frame_ms']:.2f} ms, {bench['fps']:.2f} fps; "
+          f"launches {launches}; {time.time() - t0:.1f} s")
+    if th.is_alive():
+        raise RuntimeError("[viewer] the server did not stop on /quit")
+    if hud_end["render_errors"]:
+        raise RuntimeError(f"[viewer] the render loop raised "
+                           f"{hud_end['render_errors']} times: "
+                           f"{hud_end['last_render_error']}")
+    if len(set(jpgs)) < 3 or sizes != {(960, 540)}:
+        raise RuntimeError(f"[viewer] JPEGs: {len(set(jpgs))} distinct, "
+                           f"sizes {sizes}")
+    if not (bench["frames"] > 0 and bench["median_frame_ms"] > 0):
+        raise RuntimeError("[viewer] /bench timed no frame")
+    need(launches, per_frame, 3, "viewer")
+    return bench
+
+
+def phase_cli(torch, root, need, per_frame):
+    """[viewer] the CLI on the card: render the demo fly path at 1080p,
+    2 fps, into PNGs (checked, then removed), and bench's dump."""
+    import contextlib
+    import io
+    import shutil
+    import struct
+
+    from gswt_renderer_tpu_torch.ops import kernels
+    from gswt_renderer_tpu_torch.viewer import cli
+
+    out_dir = os.path.join(root, "chiprun_out", "smoke_cli_frames")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    kernels.LAUNCHES.clear()
+    t0 = time.time()
+    cli.main(["render", "--fly-path",
+              os.path.join(root, "examples", "flypath_demo.json"),
+              "--out", out_dir, "--size", "1920x1080", "--fps", "2"])
+    launches = dict(kernels.LAUNCHES)
+    names = sorted(os.listdir(out_dir))
+    for name in names:
+        with open(os.path.join(out_dir, name), "rb") as f:
+            head = f.read(24)
+        if head[:8] != b"\x89PNG\r\n\x1a\n" or struct.unpack(
+                ">II", head[16:24]) != (1920, 1080):
+            raise RuntimeError(f"[viewer] cli render wrote a bad PNG {name}")
+    shutil.rmtree(out_dir)
+    print(f"[viewer] cli render: {len(names)} 1920x1080 PNGs of the demo "
+          f"path at 2 fps in {time.time() - t0:.1f} s; launches {launches}")
+    if len(names) != 30:  # 15 s of path at 2 fps
+        raise RuntimeError(f"[viewer] cli render wrote {len(names)} frames, "
+                           f"not 30")
+    need(launches, per_frame[:2], len(names), "cli render")
+    kernels.LAUNCHES.clear()
+    t0 = time.time()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["bench", "--size", "1920x1080"])
+    dump = buf.getvalue()
+    launches = dict(kernels.LAUNCHES)
+    res = json.loads(dump[: dump.index("Render & Sort")])
+    print(f"[viewer] cli bench ({time.time() - t0:.1f} s): {res['frames']} "
+          f"frames, median {res['median_frame_ms']:.2f} ms; launches "
+          f"{launches}; dump: {dump.splitlines()[-1]}")
+    if "\\pm" not in dump or not res["frames"]:
+        raise RuntimeError("[viewer] cli bench printed no benchmark")
+    need(launches, per_frame[:2], res["frames"], "cli bench")
+
+
 def main():
     import dataclasses
 
@@ -293,7 +566,8 @@ def main():
         sys.exit(1)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from gswt_renderer_tpu_torch.benchmarks import (
-        headline, mergesorted, micro_blockgather, micro_merge, micro_raster)
+        batched_ab, headline, mergesorted, micro_blockgather, micro_merge,
+        micro_raster, sweep_shapes)
     from gswt_renderer_tpu_torch.engine import Engine, FlyPathControl, FlyPathFrame
     from gswt_renderer_tpu_torch.io.synth import synthetic_scene_vec
     from gswt_renderer_tpu_torch.ops import (
@@ -1082,6 +1356,13 @@ def main():
 
     # 6a. where the exact full-config frame's time goes
     phase_profile(torch, eng, fp, "exact")
+
+    # 8a. [parallel] the stream cut into 4 segments, folded, and dp = sp = 1
+    # through NCCL, on the exact frame
+    seg_exact = phase_parallel(torch, eng, need, "exact",
+                               gate=(SEG_TOL, 1e-4),
+                               layers=("trirast", "bilinear"))
+    phase_nccl(torch, eng, need)
     eng.shutdown()
 
     # ------------------------------------------------------------------ #
@@ -1194,7 +1475,18 @@ def main():
 
     # 6b. where the fast full-config frame's time goes
     phase_profile(torch, eng, fp, "fast")
+
+    # 8b. [parallel] the fast profile's 4 segments beside the exact ones, and
+    # [viewer] the HTTP viewer over this Engine, then the CLI
+    seg_fast = phase_parallel(torch, eng, need, "fast", gate=(SEG_FAST_TOL, None),
+                              layers=("trirast", "bilinear", "mip_trilinear"))
+    print(f"[parallel] n_seg=4 max |err|: exact {seg_exact[0]:.3e} (limit "
+          f"{SEG_TOL:.3e}), fast {seg_fast[0]:.3e} (limit {SEG_FAST_TOL:.3e}); "
+          f"mean exact {seg_exact[1]:.3e}, fast {seg_fast[1]:.3e}")
+    phase_viewer(torch, eng, need, per_frame)
     eng.shutdown()
+    phase_cli(torch, os.path.dirname(os.path.abspath(__file__)), need,
+              per_frame)
 
     # ------------------------------------------------------------------ #
     # 7. the benchmarks sub-package: the parked merge and the micro-bench
@@ -1276,6 +1568,9 @@ def main():
     if not torch.equal(merged[0, :mm_n].view(torch.int32), want_keys):
         raise RuntimeError("merge_sorted: keys are not numpy's merge")
     del merged, pair_flat
+    # the tournament's time as the median of 7 event windows of 10 calls
+    mm_ms, mm_windows = _median_ms(
+        torch, lambda: mergesorted.merge_sorted(tabs, block=mm_block))
 
     # 7b. micro-raster variants at 1 << 22 pairs, 1080p, 64x32, chunk 256.
     # Tolerance 1e-4 per channel, absolute, in every variant: the plain
@@ -1420,16 +1715,18 @@ def main():
 
     mm_bound = merge_bytes([t.shape[1] for t in tabs]) / HBM_BYTES_PER_S * 1e3
     print(f"[kernel] merge_sorted k={mm_k} tournament ({mm_k - 1} pair "
-          f"merges): {mm_res['merge_ms']:.4f} ms (plain "
-          f"{mm_plain_ms:.3f}, torch.sort + gather {mm_res['sort_ms']:.4f}, "
-          f"bound {mm_bound:.4f})")
+          f"merges): median {mm_ms:.4f} ms of 7 event windows of 10 calls "
+          f"({', '.join(f'{w:.4f}' for w in mm_windows)}; micro_merge's own "
+          f"{mm_res['merge_ms']:.4f}), {mm_bound / mm_ms:.1%} of its byte "
+          f"bound {mm_bound:.4f} (plain {mm_plain_ms:.3f}, torch.sort + "
+          f"gather {mm_res['sort_ms']:.4f})")
     # one entry for the merge kernel: a whole k=5 tournament (4 launches of
     # the merge kernel and 4 of the split kernel), what micro_merge times
     new_entries = [dict(
         name="merge_sorted_pair", route="cuda", source=csrc + "mergesorted.cu",
         replaces="benchmarks/mergesorted.py:227",
         launches=launches_mm["merge_sorted_pair"], max_abs_err=0.0,
-        ms=mm_res["merge_ms"], plain_ms=mm_plain_ms, bound_ms=mm_bound,
+        ms=mm_ms, plain_ms=mm_plain_ms, bound_ms=mm_bound,
         bound_by="bytes", library_ms=mm_res["sort_ms"])]
     # max_abs_err is absolute; D's leaves out its pixels with a sum of |w|
     # over 1.01, which 7b holds relative to that sum and prints apart
@@ -1508,6 +1805,41 @@ def main():
           f"{hm['build_ms']:.2f} ms, builder load {hm['builder_load']:.3f}, "
           f"interactive latency {hm['interactive_latency_ms']:.2f} ms, "
           f"launches {launches_head}")
+
+    # the camera batch and stream segments against the interactive frame,
+    # and two entries of the tile-shape sweep, through their main()
+    kernels.LAUNCHES.clear()
+    ab = {row["variant"]: row for row in batched_ab.main(["-b", "4", "-n", "3"])}
+    launches_ab = dict(kernels.LAUNCHES)
+    need(launches_ab, ("block_gather", "raster"), 4, "batched_ab")
+    print(f"[bench] batched_ab, gs-only 1080p, fast profile: interactive "
+          f"{ab['interactive']['ms_per_cam']:.2f} ms, batch of 4 identical "
+          f"{ab['batch_same']['ms_per_cam']:.2f} ms/camera "
+          f"({ab['batch_same']['vs_interactive']:.3f}x), distinct "
+          f"{ab['batch_diff']['ms_per_cam']:.2f} "
+          f"({ab['batch_diff']['vs_interactive']:.3f}x), 2 segments "
+          f"{ab['segments2']['ms']:.2f} ms (pairs {ab['segments2']['pairs']}, "
+          f"max |err| {ab['segments2']['max_err']:.3e}), 4 segments "
+          f"{ab['segments4']['ms']:.2f} ms (pairs {ab['segments4']['pairs']}, "
+          f"max |err| {ab['segments4']['max_err']:.3e}), interactive again "
+          f"{ab['interactive2']['ms_per_cam']:.2f}; launches {launches_ab}")
+    kept_ab = ab["interactive"]["n_pairs_kept"]
+    for n_seg in (2, 4):
+        row = ab[f"segments{n_seg}"]
+        if (row["max_err"] > SEG_FAST_TOL
+                or abs(sum(row["pairs"]) - kept_ab) > 0.05 * kept_ab):
+            raise RuntimeError(f"[bench] batched_ab segments{n_seg}: {row}")
+    kernels.LAUNCHES.clear()
+    n_sweep = 24
+    sweep = sweep_shapes.main(["--grid", "64x32x256,32x16x128", "--frames",
+                               str(n_sweep), "--warm-stride", "3"])
+    launches_sw = dict(kernels.LAUNCHES)
+    need(launches_sw, per_frame, len(sweep) * n_sweep, "sweep_shapes")
+    print(f"[bench] sweep_shapes, 2 entries x {n_sweep} frames: "
+          + "; ".join(f"{k} median {v['frame_ms_median']:.2f} ms, "
+                      f"{v['n_pairs_kept']} pairs kept"
+                      for k, v in sweep.items())
+          + f"; launches {launches_sw}")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

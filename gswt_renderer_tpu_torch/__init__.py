@@ -13,6 +13,9 @@ its layout so each counterpart sits at the same path:
                 PyTorch version of the same function
 - ``render``    the per-frame pipeline (``Renderer``)
 - ``engine``    the session loop with its async builder thread (``Engine``)
+- ``parallel``  camera- and stream-parallel rendering over torch.distributed
+- ``viewer``    the CLI, headless fly-path frames and the HTTP viewer
+- ``benchmarks`` the headline fly-through and the A/B scripts
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; on a CPU tensor every kernel wrapper runs its plain version.
@@ -20,7 +23,8 @@ This package imports neither ``jax`` nor ``gswt_renderer_tpu``.
 
 Ported so far: the full-config frame (skybox + proxy ground + splats) in both
 profiles, the default fast profile (``RendererConfig.exact=False``, with the
-optional ``sat_cull`` and ``depth_cull``) and the exact one.
+optional ``sat_cull`` and ``depth_cull``) and the exact one, the bench entry,
+the viewer and the parallel paths.
 """
 
 __version__ = "0.1.0"

@@ -266,7 +266,8 @@ def _sat_cullable(sat_simg, cy, ey, x0, x1, *, nty, th):
 
 
 def bin_pairs(p, *, image_wh, tile_wh, chunk: int, exact: bool = True,
-              cull_exact: bool = True, occ_zimg=None, sat_simg=None):
+              cull_exact: bool = True, occ_zimg=None, sat_simg=None,
+              emit_block_demand: bool = False):
     """p: projection outputs (front-to-back order, S lanes; the lane index
     is the stream slot).
 
@@ -293,6 +294,11 @@ def bin_pairs(p, *, image_wh, tile_wh, chunk: int, exact: bool = True,
     the cut of every band it reaches composites entirely behind a
     transmittance < MIN_T. Splat level only (_sat_cullable).
 
+    emit_block_demand: also return block_demand [S / 256] i64, the bbox pair
+    demand of each 256-lane block of the stream after the culls above (the
+    stream split of parallel/batched.py cuts its segments at quantiles of
+    it; live lanes alone cannot see how many tiles a splat covers).
+
     Returns dict:
       table — [16, dom] f32 rows k0..k5 (recentered to each pair's tile
         origin, build_pair_table), z, 0, r, g, b, ln a, slot, 0 x3; dom is
@@ -301,6 +307,7 @@ def bin_pairs(p, *, image_wh, tile_wh, chunk: int, exact: bool = True,
       range_start/range_end [n_tiles] i32 — each tile's run of the table
       n_pairs — bbox pair demand (int), n_pairs_kept — pairs in tile runs
         after the culls (0-d tensor), n_live — visible splats (0-d tensor)
+      block_demand — with emit_block_demand only (see above)
     """
     w_img, h_img = image_wh
     tw, th = tile_wh
@@ -332,7 +339,8 @@ def bin_pairs(p, *, image_wh, tile_wh, chunk: int, exact: bool = True,
         ok = ok & ~_sat_cullable(sat_simg, cy, ey, x0, x1, nty=nty, th=th)
     nx = torch.where(ok, x1 - x0 + 1, 0)
     ny = torch.where(ok, y1 - y0 + 1, 0)
-    prim, tiles = _expand(x0, y0, nx, nx * ny, ntx=ntx)
+    count0 = nx * ny
+    prim, tiles = _expand(x0, y0, nx, count0, ntx=ntx)
     n_pairs = prim.shape[0]
 
     if occ_zimg is not None:
@@ -361,7 +369,7 @@ def bin_pairs(p, *, image_wh, tile_wh, chunk: int, exact: bool = True,
         ntx=ntx, n_tiles=n_tiles, tile_wh=tile_wh, src=src,
     )
     range_start, range_end = tile_ranges(tile_of, n_tiles)
-    return dict(
+    out = dict(
         table=table,
         range_start=range_start,
         range_end=range_end,
@@ -369,3 +377,9 @@ def bin_pairs(p, *, image_wh, tile_wh, chunk: int, exact: bool = True,
         n_pairs_kept=(range_end - range_start).sum(),
         n_live=ok.sum(),
     )
+    if emit_block_demand:
+        s_n = count0.shape[0]
+        pad = -s_n % 256
+        out["block_demand"] = torch.cat(
+            [count0, count0.new_zeros(pad)]).reshape(-1, 256).sum(1)
+    return out

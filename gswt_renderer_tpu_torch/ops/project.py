@@ -323,12 +323,15 @@ def assemble_and_project(blocks, merged, panels, keep_draw, store_packed,
     gs|lod<<26, map id) or the per-sort merged scratch built here from
     `merged`. Assembly is ONE panel block-gather reading both in place.
 
-    blocks: [5, NB] i32 host-staged plan, rows:
+    blocks: [5, NB] or [6, NB] i32 host-staged plan, rows:
       0 src    — panel id into [panels | merged scratch]
       1 bits1  — per-draw uniform bits (pack_draw_bits); bit 28 set iff live
       2 bits2
       3 nvalid — live lanes in this block (0 for padding)
       4 draw   — draw id (indexes keep_draw)
+      5 lo     — optional: first live lane; the stream split of
+                 parallel/batched.py cuts a block between two segments with
+                 it (a 5-row plan has lo = 0)
     Returns dict: valid [S], cx/cy/z [S], q (3 comps), color (4 comps),
     ext_x/ext_y [S]  (S = NB*256).
     """
@@ -353,6 +356,8 @@ def assemble_and_project(blocks, merged, panels, keep_draw, store_packed,
     bits2 = bcast(blocks[2])
     lane = torch.arange(BLOCK, device=blocks.device, dtype=torch.int32).repeat(nb)
     in_range = lane < bcast(blocks[3])
+    if blocks.shape[0] >= 6:
+        in_range &= lane >= bcast(blocks[5])
     keep_blk = keep_draw[blocks[4].long()].to(torch.int32)
     keep = bcast(keep_blk) & ((bits1 >> 28) & 1)
     if gs_enable is not None:

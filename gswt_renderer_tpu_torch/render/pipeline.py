@@ -263,6 +263,7 @@ class Renderer:
         self.proxy_tris = torch.zeros((3, 2), dtype=torch.int32,
                                       device=self.device)
         self.last_aux = None
+        self.last_stream_truncated = 0
         self._plan_host = None
         self._plan_dev = None
 
@@ -584,6 +585,9 @@ class Renderer:
         blocks, merged, _, n, truncated = self.plan_blocks_host(
             dt, vp, culling_dist
         )
+        # splats the last staged plan dropped past max_stream (the viewer's
+        # /hud shows it)
+        self.last_stream_truncated = truncated
         if truncated:
             print(
                 f"[gswt] warning: stream budget exceeded, dropped {truncated} "
@@ -617,18 +621,24 @@ class Renderer:
         return self._plan_dev
 
     # ------------------------------------------------------------------ #
-    def frame_uniforms(self, camera: Camera, scene: SceneParams,
-                       rc: RenderConfig, render_gs: bool = True):
-        """One frame's uniforms on the device, unpacked (see
-        unpack_frame_uniforms): one small upload per frame."""
+    def pack_uniforms(self, camera: Camera, scene: SceneParams,
+                      rc: RenderConfig, render_gs: bool = True):
+        """One frame's packed uniforms [UNIFORMS_LEN] f32 on the device (one
+        small upload per frame)."""
         lod_enable = list(rc.lod_enable or [True] * 16)
-        uniforms = torch.as_tensor(
+        return torch.as_tensor(
             self.pack_frame_uniforms(
                 scene, CameraUniforms(camera), lod_enable, rc.culling_dist,
                 render_gs=render_gs,
             )
         ).to(self.device)
-        return self.unpack_frame_uniforms(uniforms)
+
+    def frame_uniforms(self, camera: Camera, scene: SceneParams,
+                       rc: RenderConfig, render_gs: bool = True):
+        """One frame's uniforms on the device, unpacked (see
+        unpack_frame_uniforms)."""
+        return self.unpack_frame_uniforms(
+            self.pack_uniforms(camera, scene, rc, render_gs))
 
     def project(self, plan, camera: Camera, scene: SceneParams,
                 rc: RenderConfig, render_gs: bool = True):
@@ -695,21 +705,48 @@ class Renderer:
     def front(self, plan, camera: Camera, scene: SceneParams,
               rc: RenderConfig, render_gs: bool = True,
               use_skybox: bool = False, use_proxy: bool = False,
-              sat_zimg=None):
+              sat_zimg=None, emit_block_demand: bool = False):
         """Projection, background + proxy depth, binning of one frame from
         an uploaded plan. Returns (binned, bg [H,W,4], depth_tiles [T,P],
         aux): the binned pair table (ops/binning.py bin_pairs), what the
         compositor's output lies over and is depth-tested against. The
         background and depth come BEFORE binning: the proxy depth feeds the
         occlusion cull. sat_zimg ([nty * SAT_BANDS, ntx] or None): the
-        previous frame's dilated saturation-slot image (binning's sat_simg)."""
-        c = self.cfg
-        image_wh = (c.width, c.height)
-        tile_wh = (c.tile_w, c.tile_h)
-        unpacked = self.frame_uniforms(camera, scene, rc, render_gs)
-        scene_d, cam_d = unpacked[0], unpacked[1]
+        previous frame's dilated saturation-slot image (binning's sat_simg).
+        emit_block_demand moves binning's per-block pair demand into
+        aux["block_demand"]."""
+        return self.front_packed(
+            plan, self.pack_uniforms(camera, scene, rc, render_gs), scene,
+            rc, use_skybox=use_skybox, use_proxy=use_proxy,
+            sat_zimg=sat_zimg, emit_block_demand=emit_block_demand)
+
+    def front_packed(self, plan, uniforms, scene: SceneParams,
+                     rc: RenderConfig, *, use_skybox: bool = False,
+                     use_proxy: bool = False, sat_zimg=None,
+                     emit_block_demand: bool = False):
+        """front() from packed uniforms ([UNIFORMS_LEN] f32 on the device,
+        pack_uniforms or a row of parallel/batched.py pack_camera_batch)."""
+        unpacked = self.unpack_frame_uniforms(uniforms)
         with record_function("gswt.project"):
             p = self._project(plan, unpacked, scene, rc)
+        bg, depth_tiles, aux = self.background(
+            unpacked, scene, rc, use_skybox=use_skybox, use_proxy=use_proxy)
+        binned, bin_aux = self.bin_pairs(
+            p, depth_tiles, use_proxy=use_proxy, sat_zimg=sat_zimg,
+            emit_block_demand=emit_block_demand)
+        aux.update(bin_aux)
+        return binned, bg, depth_tiles, aux
+
+    def background(self, unpacked, scene: SceneParams, rc: RenderConfig, *,
+                   use_skybox: bool, use_proxy: bool):
+        """The skybox and the proxy ground of one frame from its unpacked
+        uniforms. Returns (bg [H,W,4], depth_tiles [T,P], aux): the
+        background the compositor's output lies over and the depth it is
+        tested against (1.0 without the proxy); aux holds proxy_pairs when
+        the proxy was drawn."""
+        c = self.cfg
+        image_wh = (c.width, c.height)
+        scene_d, cam_d = unpacked[0], unpacked[1]
         aux = {}
         if use_skybox:
             with record_function("gswt.skybox"):
@@ -728,7 +765,17 @@ class Renderer:
             depth = torch.ones((c.height, c.width), dtype=torch.float32,
                                device=self.device)
         depth_tiles = raster.image_to_depth_tiles(
-            depth, image_wh=image_wh, tile_wh=tile_wh)
+            depth, image_wh=image_wh, tile_wh=(c.tile_w, c.tile_h))
+        return bg, depth_tiles, aux
+
+    def bin_pairs(self, p, depth_tiles, *, use_proxy: bool, sat_zimg=None,
+                  emit_block_demand: bool = False):
+        """Binning of a projected stream (ops/binning.py bin_pairs) with the
+        configured culls. Returns (binned, aux): aux holds n_pairs,
+        n_pairs_kept and n_live, and block_demand with emit_block_demand."""
+        c = self.cfg
+        image_wh = (c.width, c.height)
+        tile_wh = (c.tile_w, c.tile_h)
         occ_zimg = None
         if use_proxy and c.depth_cull:
             ntx, nty, _ = binning.grid_dims(image_wh, tile_wh)
@@ -737,12 +784,14 @@ class Renderer:
             binned = binning.bin_pairs(
                 p, image_wh=image_wh, tile_wh=tile_wh, chunk=c.chunk,
                 exact=c.exact, cull_exact=c.cull_exact, occ_zimg=occ_zimg,
-                sat_simg=sat_zimg,
+                sat_simg=sat_zimg, emit_block_demand=emit_block_demand,
             )
-        aux.update(n_pairs=binned["n_pairs"],
+        aux = dict(n_pairs=binned["n_pairs"],
                    n_pairs_kept=binned["n_pairs_kept"],
                    n_live=binned["n_live"])
-        return binned, bg, depth_tiles, aux
+        if emit_block_demand:
+            aux["block_demand"] = binned.pop("block_demand")
+        return binned, aux
 
     def back(self, binned, bg, depth_tiles, *, use_proxy: bool,
              emit_zcut: bool = False):

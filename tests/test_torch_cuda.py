@@ -22,6 +22,9 @@ The triangle raster's card tests run its two kernels (the entries and the
 fold) on adversarial triangles from tests/torch_tables.py, which imports no
 jax either."""
 
+import collections
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -1014,3 +1017,163 @@ def test_micro_contig_gather_out_of_range_and_shapes(cuda, k, b_cols, group,
     with pytest.raises(ValueError):
         bg.gather_contig(table.view(-1)[1:].view(-1)[:4 * (npb - 1)]
                          .view(npb - 1, 1, 4), src, group=group)
+
+
+# ---------------------------------------------------------------------- #
+# the stream segments, the process group of one and the viewer on the card
+
+MIN_T = 0.5 / 255.0
+
+
+@pytest.fixture(scope="module")
+def bench_frame():
+    """The bench scene's first 1080p camera on an exact-profile Renderer on
+    the card, with the skybox and proxy, and its staged plan."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from gswt_renderer_tpu_torch.benchmarks import headline
+    from gswt_renderer_tpu_torch.core import Camera
+    from gswt_renderer_tpu_torch.core.config import RenderConfig
+    from gswt_renderer_tpu_torch.io.synth import synthetic_scene_vec
+    from gswt_renderer_tpu_torch.render.pipeline import Renderer, RendererConfig
+    from gswt_renderer_tpu_torch.render.uniforms import SceneParams
+    from gswt_renderer_tpu_torch.tiles import WangTileEngine
+
+    wang = WangTileEngine(synthetic_scene_vec(n_lod=3, splats_per_tile=512,
+                                              lod_decay=2, seed=0))
+    ud = headline.bench_user_data()
+    wang.configure(ud)
+    _, pos, target = headline.KEYFRAMES[0]
+    cam_pos = np.asarray(pos, np.float32)
+    wang.build_tiles(cam_pos)
+
+    def camera(dx=0.0):
+        return Camera((1920, 1080), cam_pos + np.float32([dx, 0, 0]),
+                      np.asarray(target, np.float32) + np.float32([dx, 0, 0]),
+                      (0.0, 0.0, 1.0), np.deg2rad(45.0), 0.1, 1000.0)
+
+    dt = wang.sort_tiles(cam_pos, camera().view_proj())
+    r = Renderer(wang, RendererConfig(width=1920, height=1080, exact=True),
+                 device="cuda")
+    r.configure(ud)
+    sky, checker = headline.bench_textures()
+    r.set_skybox(sky, equirect=True)
+    r.set_proxy(checker)
+    rc = RenderConfig.new(wang.n_tiles[0])
+    sp = SceneParams.from_data(ud, wang.center_coord, rc)
+    return dict(r=r, rc=rc, sp=sp, staged=r.stage(dt, camera(), rc.culling_dist),
+                camera=camera, full=dict(use_skybox=True, use_proxy=True))
+
+
+def test_stream_segments_fold_at_1080p(bench_frame):
+    """Four stream segments in turn on the card, folded, against the single
+    exact frame: max |err| <= 1e-3 + MIN_T (a later segment's restart at
+    T = 1 composites tail pairs the single frame's early exit skipped),
+    mean < 1e-4; the pairs split within 1.5x after the feedback and sum
+    within 5% of the frame's; every segment ran the kernels."""
+    from gswt_renderer_tpu_torch.parallel import render_stream_segments
+
+    f = bench_frame
+    r = f["r"]
+    ref = r.render(None, f["camera"](), f["sp"], f["rc"], staged=f["staged"],
+                   as_numpy=False, **f["full"])
+    kept = int(r.last_aux["n_pairs_kept"])
+    r.__dict__.pop("_sp_feedback", None)
+    for _ in range(4):
+        before = collections.Counter(kernels.LAUNCHES)
+        img = render_stream_segments(r, f["staged"], f["sp"], f["camera"](),
+                                     4, f["rc"], **f["full"])
+        torch.cuda.synchronize()
+        pairs = r.last_shard_pairs_kept
+        if max(pairs) <= 1.5 * min(pairs):
+            break
+    launched = kernels.LAUNCHES - before
+    for name in ("block_gather", "raster"):
+        assert launched[name] == 4, launched
+    for name in ("trirast", "bilinear"):
+        assert launched[name] >= 1, launched
+    diff = (img - ref).abs()
+    assert float(diff.max()) <= 1e-3 + MIN_T and float(diff.mean()) < 1e-4
+    assert min(pairs) > 0 and max(pairs) <= 1.5 * min(pairs), pairs
+    assert abs(sum(pairs) - kept) <= 0.05 * kept, (pairs, kept)
+
+
+def test_nccl_group_of_one_is_the_plain_frame(bench_frame):
+    """dp = sp = 1 through a real NCCL group: a batch of distinct cameras
+    and the stream path, each bit-equal to Renderer.render (same kernels,
+    same inputs)."""
+    from gswt_renderer_tpu_torch.parallel import (
+        render_cameras_sharded, render_stream_sharded)
+    from gswt_renderer_tpu_torch.parallel.batched import (
+        group_of_one, pack_camera_batch)
+
+    f = bench_frame
+    r = f["r"]
+    cams = [f["camera"](0.5 * i) for i in range(2)]
+    with group_of_one("cuda") as mesh:
+        assert torch.distributed.get_backend() == "nccl"
+        imgs = render_cameras_sharded(
+            r, f["staged"], f["sp"], pack_camera_batch(r, f["sp"], cams, f["rc"]),
+            mesh, f["rc"], **f["full"])
+        img = render_stream_sharded(r, f["staged"], f["sp"], cams[0], mesh,
+                                    f["rc"], **f["full"])
+    for i, c in enumerate(cams):
+        ref = r.render(None, c, f["sp"], f["rc"], staged=f["staged"],
+                       as_numpy=False, **f["full"])
+        assert torch.equal(imgs[i], ref), i
+        if i == 0:
+            assert torch.equal(img, ref)
+
+
+def test_server_streams_a_frame_jpg(cuda):
+    """One /frame.jpg from the viewer over an Engine on the card, decoded,
+    and no render-loop error on /hud."""
+    import io
+    import json
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from PIL import Image
+
+    from gswt_renderer_tpu_torch.core import UserData
+    from gswt_renderer_tpu_torch.engine import Engine
+    from gswt_renderer_tpu_torch.io.synth import synthetic_scene_vec
+    from gswt_renderer_tpu_torch.render.pipeline import RendererConfig
+    from gswt_renderer_tpu_torch.viewer.server import serve
+
+    eng = Engine(synthetic_scene_vec(n_lod=2, splats_per_tile=48),
+                 viewport=(128, 96),
+                 renderer_config=RendererConfig(width=128, height=96,
+                                                max_draws=64, chunk=128),
+                 synchronous=False, device="cuda")
+    eng.configure(UserData.from_ui(tile_map_half_wh=(2, 2), lod_max_dist=8.0))
+    try:
+        assert eng.wait_ready(timeout_s=120)
+        stop, bound = threading.Event(), {}
+        ready = threading.Event()
+        t = threading.Thread(target=serve, args=(eng, "127.0.0.1", 0),
+                             kwargs=dict(stream_ms=20.0, stop_event=stop,
+                                         on_bound=lambda p: (bound.update(p=p),
+                                                             ready.set())),
+                             daemon=True)
+        t.start()
+        assert ready.wait(30)
+        url = f"http://127.0.0.1:{bound['p']}"
+        jpg = b""
+        for _ in range(200):
+            try:
+                with urllib.request.urlopen(url + "/frame.jpg", timeout=10) as resp:
+                    jpg = resp.read()
+                break
+            except urllib.error.HTTPError:  # 503 before the first grab
+                time.sleep(0.05)
+        assert Image.open(io.BytesIO(jpg)).size == (64, 48)
+        with urllib.request.urlopen(url + "/hud", timeout=10) as resp:
+            assert json.loads(resp.read())["render_errors"] == 0
+        urllib.request.urlopen(urllib.request.Request(
+            url + "/quit", data=b"{}", method="POST"), timeout=10).close()
+        t.join(15)
+        assert not t.is_alive()
+    finally:
+        eng.shutdown()

@@ -13,6 +13,7 @@ there and ~1e-3 of each weight."""
 
 import numpy as np
 import pytest
+import torch
 
 from gswt_renderer_tpu.core import Camera, UserData
 from gswt_renderer_tpu.core.config import (
@@ -24,6 +25,18 @@ from gswt_renderer_tpu.render.pipeline import RendererConfig as JaxConfig
 from gswt_renderer_tpu.render.uniforms import SceneParams, build_frame_inputs
 from gswt_renderer_tpu.tiles import WangTileEngine
 from gswt_renderer_tpu_torch.render.pipeline import Renderer, RendererConfig
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for these small tensors: under the suite's
+    parallel workers PyTorch's default pool (a thread per core in every
+    worker) oversubscribes the host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
 
 W = H = 128
 JAX_FAST_MAX = 0.03

@@ -18,7 +18,7 @@ PKG = ROOT / "gswt_renderer_tpu_torch"
 # and import one another by bare name)
 FORBIDDEN = ("jax", "jaxlib", "gswt_renderer_tpu", "bench", "benchmarks",
              "mergesorted", "micro_merge", "micro_raster",
-             "micro_blockgather")
+             "micro_blockgather", "sweep_shapes", "batched_ab")
 
 
 def _modules():
@@ -81,7 +81,8 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("module", ["headline", "micro_merge", "micro_raster",
-                                    "micro_blockgather"])
+                                    "micro_blockgather", "batched_ab",
+                                    "sweep_shapes"])
 def test_benchmark_scripts_default_to_the_card(module):
     """Every script of the benchmarks sub-package asks for CUDA unless given
     --device cpu, and raises before doing any work on a host without it."""
@@ -99,7 +100,37 @@ def test_the_benchmarks_sub_package_is_covered():
     names = {m.rsplit(".", 1)[1] for m in _modules()
              if m.startswith("gswt_renderer_tpu_torch.benchmarks.")}
     assert {"headline", "mergesorted", "micro_merge", "micro_raster",
-            "micro_blockgather", "timing"} <= names
+            "micro_blockgather", "timing", "batched_ab",
+            "sweep_shapes"} <= names
+
+
+def test_the_viewer_and_parallel_modules_are_covered():
+    """The JAX package's last modules that import jax have their
+    counterparts, which the import test above loads."""
+    mods = set(_modules())
+    assert {"gswt_renderer_tpu_torch.viewer.cli",
+            "gswt_renderer_tpu_torch.viewer.headless",
+            "gswt_renderer_tpu_torch.viewer.server",
+            "gswt_renderer_tpu_torch.parallel.batched"} <= mods
+
+
+def test_parallel_entry_points_default_to_the_card():
+    """make_mesh and the group of one ask for CUDA (NCCL) unless given
+    "cpu", and raise on a host without it before touching a process
+    group."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    import torch.distributed as dist
+
+    from gswt_renderer_tpu_torch.parallel.batched import (
+        group_of_one, make_mesh)
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        with group_of_one():
+            pass
+    assert not dist.is_initialized()
 
 
 def test_unported_paths_raise():

@@ -30,6 +30,18 @@ from gswt_renderer_tpu_torch.io.synth import synthetic_scene_vec as t_synth
 from gswt_renderer_tpu_torch.render.pipeline import (
     Renderer, RendererConfig, state_from_numpy)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for these small tensors: under the suite's
+    parallel workers PyTorch's default pool (a thread per core in every
+    worker) oversubscribes the host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 W = H = 128
 
 

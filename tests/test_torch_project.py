@@ -32,6 +32,18 @@ from gswt_renderer_tpu.tiles import WangTileEngine
 from gswt_renderer_tpu_torch.ops import project as tproj
 from gswt_renderer_tpu_torch.render.pipeline import Renderer, RendererConfig
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for these small tensors: under the suite's
+    parallel workers PyTorch's default pool (a thread per core in every
+    worker) oversubscribes the host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 W = H = 128
 
 CASES = {

@@ -20,6 +20,18 @@ from gswt_renderer_tpu_torch.ops import kernels
 from gswt_renderer_tpu_torch.ops import raster as tr
 from torch_tables import adversarial_binned, adversarial_table
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for these small tensors: under the suite's
+    parallel workers PyTorch's default pool (a thread per core in every
+    worker) oversubscribes the host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = 1e-4
 # Fast profile against the JAX fast kernel. Both round weights and colours to
 # bf16 before the f32 accumulate, but the JAX kernel forms the exponent from
