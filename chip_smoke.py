@@ -68,7 +68,19 @@ Phases, each printing its own line; any failure raises (non-zero exit):
    distinct 960x540 JPEGs while the camera moves, /hud, /bench over 2
    recorded keyframes, /quit, no render-loop error), the CLI's render (the
    demo fly path at 2 fps, 1080p PNGs) and bench; then batched_ab and a
-   two-entry sweep_shapes through their main().
+   two-entry sweep_shapes through their main();
+10. host sections: every call of a few exact and of a few fast frames that
+   waits for the device (PyTorch's sync debug mode), each with the
+   host-profiler section open at it, failing if one lies outside a sync.*
+   section; profile_hostloop's 24 fast 1080p frames along the first leg,
+   with the builder running and frozen ([hostprof] lines);
+11. the fixed-camera and A/B scripts through their main() at their
+   smallest honest setting, each in a launch-count window of its own
+   ([bench] <script> lines): profile_frame, stage_times, quick_full --ab,
+   cull_ab (with and without the ellipse-tile cull), depth_cull_ab,
+   proxydiv_ab, saturation (one 1080p frame), micro_background,
+   inversion_ab (1080p and 4K) and configs --quick (its 4K and dense rows
+   kept).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Needs a CUDA device and the repository's
@@ -324,6 +336,170 @@ def phase_profile(torch, eng, fp, label, n: int = 4):
                   f"x{e.count / n:4.1f}  {e.key[:70]}")
     print(f"{tag} kernels launched: "
           f"{sum(e.count for e in kernels_) / n:.0f} per frame")
+
+
+def phase_syncs(torch, eng, fp, label, n: int = 3):
+    """[sync] Every call of n frames along the fly path (the last one read
+    back, as Engine.frame does by default) that waits for the device, found
+    by PyTorch's sync debug mode, with the host-profiler section open at it
+    (core/hostprof.py). Fails if one lies outside a sync.* section or
+    render.drain, or if none is found (the debug mode caught nothing)."""
+    import collections
+    import warnings
+
+    from gswt_renderer_tpu_torch.core import hostprof
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sites = collections.Counter()
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing CUDA operation" in str(message):
+            open_ = hostprof.open_sections()
+            sites[(os.path.relpath(filename, root), lineno,
+                   open_[-1] if open_ else "no section")] += 1
+
+    fp.reset_path()
+    fp.start_path()
+    eng.renderer.drain()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        hostprof.set_host_prof(True)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for i in range(n):
+                fp.handle_events(eng.camera,
+                                 now_ms=15000.0 * (i + 1) / (n + 1))
+                eng.frame(readback=i == n - 1)
+            eng.renderer.drain()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            hostprof.set_host_prof(False)
+            hostprof.HOST_PROF.clear()
+    for (path, line, sec), k in sorted(sites.items()):
+        print(f"[sync] {label}: {path}:{line} in {sec}, {k} in {n} frames")
+    bad = [site for site in sites
+           if not (site[2].startswith("sync.") or site[2] == "render.drain")]
+    if bad or not sites:
+        raise RuntimeError(f"[sync] {label}: waits outside a sync.* section "
+                           f"{bad}, or none found")
+
+
+def phase_hostprof(need, per_frame, n: int = 24):
+    """[hostprof] profile_hostloop's n fast 1080p frames with the builder
+    running and with it frozen, each in a launch-count window of its
+    own."""
+    from gswt_renderer_tpu_torch.benchmarks import profile_hostloop
+    from gswt_renderer_tpu_torch.ops import kernels
+
+    for frozen in (False, True):
+        kernels.LAUNCHES.clear()
+        res = profile_hostloop.main(["-n", str(n)]
+                                    + (["--frozen"] if frozen else []))
+        launches = dict(kernels.LAUNCHES)
+        label = "builder frozen" if frozen else "builder running"
+        need(launches, per_frame, n, f"hostprof, {label}")
+        sec = res["sections"]
+        for name in ("frame.update_pump", "render.uniforms", "sync.uniforms",
+                     "render.front.project", "render.front.skybox",
+                     "render.front.proxy", "render.front.bin", "render.back",
+                     "sync.bin_pairs", "sync.expand_bboxes"):
+            if sec.get(name, {}).get("n") != n:
+                raise RuntimeError(f"[hostprof] section {name}: "
+                                   f"{sec.get(name)} in {n} frames")
+        per = {k: v["self_ms"] / n for k, v in sec.items()}
+        top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
+        print(f"[hostprof] {label}, {n} fast 1080p frames: wall "
+              f"{res['wall_ms']:.3f} ms/frame; render thread sections "
+              f"{res['accounted_ms']:.3f} = sync waits {res['sync_ms']:.3f} "
+              f"+ the rest {res['rest_ms']:.3f}, unaccounted "
+              f"{res['unaccounted_ms']:.3f}; builder staging "
+              f"{res['builder_ms']:.3f} ms/frame, load "
+              f"{res['builder_load']:.3f}; self ms/frame "
+              + ", ".join(f"{k} {v:.3f}" for k, v in top)
+              + f"; launches {launches}")
+
+
+def phase_scripts(need, per_frame):
+    """[bench] The fixed-camera and A/B scripts through their main() at
+    their smallest honest setting, each in a launch-count window of its
+    own that must hold `frames` launches of each kernel its frames run."""
+    from gswt_renderer_tpu_torch.benchmarks import (
+        configs, cull_ab, depth_cull_ab, inversion_ab, micro_background,
+        profile_frame, proxydiv_ab, quick_full, saturation, stage_times)
+    from gswt_renderer_tpu_torch.ops import kernels
+
+    splat = ("block_gather", "raster")
+    background = ("bilinear", "trirast", "trirast_fold", "mip_trilinear")
+
+    def run(name, fn, argv, names, frames):
+        kernels.LAUNCHES.clear()
+        t0 = time.time()
+        res = fn(argv)
+        launches = dict(kernels.LAUNCHES)
+        need(launches, names, frames, name)
+        return res, f"({time.time() - t0:.1f} s; launches {launches})"
+
+    def med(s):
+        return f"{s['median']:.2f} ({s['min']:.2f}-{s['max']:.2f})"
+
+    res, tail = run("profile_frame", profile_frame.main, ["-n", "3"],
+                    per_frame, 6)
+    print(f"[bench] profile_frame: 3 frames {med(res['frame_ms'])} ms; top "
+          f"device ops "
+          + ", ".join(f"{stage} {ms:.3f}" for ms, _, stage, _ in
+                      res["device_ops"][:4]) + f" {tail}")
+    res, tail = run("stage_times", stage_times.main, ["-n", "3"], splat, 9)
+    print(f"[bench] stage_times: " + ", ".join(
+        f"{k} wall {res[k]['wall']:.2f} events {res[k]['events']:.2f}"
+        for k in ("project", "binning", "raster")) + f" ms {tail}")
+    res, tail = run("quick_full", quick_full.main, ["-n", "4", "--ab"],
+                    per_frame, 12)
+    print(f"[bench] quick_full --ab: " + "; ".join(
+        f"sat_cull={r['sat_cull']} {med(r['frame_ms'])} ms, kept "
+        f"{r['n_pairs_kept']}" for r in res) + f" {tail}")
+    for flag in ([], ["--no-cull-exact"]):
+        res, tail = run("cull_ab", cull_ab.main, ["-n", "3"] + flag,
+                        per_frame, 24)
+        print(f"[bench] cull_ab{' ' + flag[0] if flag else ''}: " + "; ".join(
+            f"{r['variant']}/cam{r['cam']} {med(r['frame_ms'])} ms, kept "
+            f"{r['n_pairs_kept']}" for r in res) + f" {tail}")
+    res, tail = run("depth_cull_ab", depth_cull_ab.main, ["-n", "4"],
+                    per_frame, 8)
+    print(f"[bench] depth_cull_ab: off {med(res['off']['frame_ms'])} ms, "
+          f"kept {res['off']['n_pairs_kept']}; on "
+          f"{med(res['on']['frame_ms'])} ms, kept "
+          f"{res['on']['n_pairs_kept']} {tail}")
+    res, tail = run("proxydiv_ab", proxydiv_ab.main, ["-n", "4"], per_frame,
+                    8)
+    print(f"[bench] proxydiv_ab: " + "; ".join(
+        f"div {r['div']} {med(r['frame_ms'])} ms, proxy pairs "
+        f"{r['proxy_pairs']}" for r in res)
+        + f"; max |diff| {res[-1]['max_diff']:.4f}, over 8/255 "
+        f"{res[-1]['share_over_8']:.3%} {tail}")
+    res, tail = run("saturation", saturation.main, [], per_frame, 1)
+    if res["pairs_composited"] + res["pairs_in_skipped_entries"] != \
+            res["pairs_total"]:
+        raise RuntimeError(f"[bench] saturation does not add up: {res}")
+    print(f"[bench] saturation: {json.dumps(res)} {tail}")
+    res, tail = run("micro_background", micro_background.main,
+                    ["-n", "4", "--reps", "5"], background, 20)
+    print(f"[bench] micro_background: " + "; ".join(
+        f"{r['name']} {med(r)} ms" for r in res) + f" {tail}")
+    res, tail = run("inversion_ab", inversion_ab.main, ["-n", "3"], splat,
+                    18)
+    print(f"[bench] inversion_ab: " + "; ".join(
+        f"{r['res']} gs {med(r['gs'])}, +sky {med(r['gs+sky'])}, full "
+        f"{med(r['full'])} ms, kept {r['n_pairs_kept']}" for r in res["rows"])
+        + f"; ratios {json.dumps(res['ratio'])} {tail}")
+    res, tail = run("configs", configs.main, ["--quick"], splat, 35)
+    vps = {r["config"]: r["viewport"] for r in res}
+    if (vps["4b_full_skybox_proxy_4k"] != [3840, 2160]
+            or vps["5_batched_cameras_1080p"] != [1920, 1080]):
+        raise RuntimeError(f"[bench] configs rendered at {vps}")
+    print(f"[bench] configs --quick: " + "; ".join(
+        f"{r['config']} {r['frame_ms']:.2f} ms ({r['spread']['min']:.2f}-"
+        f"{r['spread']['max']:.2f})" for r in res) + f" {tail}")
 
 
 def phase_parallel(torch, eng, need, label, *, gate, layers):
@@ -1354,8 +1530,10 @@ def main():
     print(f"[main] proxy pairs last frame "
           f"{eng.renderer.last_aux['proxy_pairs']}, setup {setup_s:.1f} s")
 
-    # 6a. where the exact full-config frame's time goes
+    # 6a. where the exact full-config frame's time goes, and where its
+    # host waits for the device
     phase_profile(torch, eng, fp, "exact")
+    phase_syncs(torch, eng, fp, "exact")
 
     # 8a. [parallel] the stream cut into 4 segments, folded, and dp = sp = 1
     # through NCCL, on the exact frame
@@ -1473,8 +1651,10 @@ def main():
     if sat_diff > MIN_T * 1.5 or sat_run["kept"][-1] > still["kept"][-1]:
         raise RuntimeError("the sat-culled frame is not the un-culled one")
 
-    # 6b. where the fast full-config frame's time goes
+    # 6b. where the fast full-config frame's time goes, and where its host
+    # waits for the device
     phase_profile(torch, eng, fp, "fast")
+    phase_syncs(torch, eng, fp, "fast")
 
     # 8b. [parallel] the fast profile's 4 segments beside the exact ones, and
     # [viewer] the HTTP viewer over this Engine, then the CLI
@@ -1840,6 +2020,11 @@ def main():
                       f"{v['n_pairs_kept']} pairs kept"
                       for k, v in sweep.items())
           + f"; launches {launches_sw}")
+
+    # 10. where the fly-through's host time goes; 11. the fixed-camera and
+    # A/B scripts
+    phase_hostprof(need, per_frame)
+    phase_scripts(need, per_frame)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

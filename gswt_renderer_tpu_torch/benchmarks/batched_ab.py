@@ -29,7 +29,6 @@ import numpy as np
 from ..core import Camera
 from ..core.config import RenderConfig
 from ..io.synth import synthetic_scene_vec
-from ..ops import kernels
 from ..parallel.batched import (
     group_of_one, pack_camera_batch, render_cameras_sharded,
     render_stream_segments)
@@ -37,20 +36,11 @@ from ..render.pipeline import Renderer, RendererConfig
 from ..render.uniforms import SceneParams
 from ..tiles import WangTileEngine
 from .headline import bench_user_data
-from .timing import device_label
+from .timing import device_complete_ms, open_device, spread
 
 
 def _median_ms(fn, drain, n, warm=2):
-    for _ in range(warm):
-        fn()
-    drain()
-    ts = []
-    for _ in range(n):
-        t0 = time.perf_counter()
-        fn()
-        drain()
-        ts.append((time.perf_counter() - t0) * 1e3)
-    return float(np.median(ts))
+    return spread(device_complete_ms(fn, drain, n, warm))["median"]
 
 
 def main(argv=None):
@@ -64,10 +54,7 @@ def main(argv=None):
     ap.add_argument("--map-half", type=int, default=48)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    device = kernels.resolve_device(args.device)
-    print(f"[batched_ab] device: {device_label(device)}", flush=True)
-    if device.type == "cuda":
-        kernels.build_all()
+    device = open_device(args.device, "[batched_ab]")
 
     width, height = args.width, args.height
     eng = WangTileEngine(synthetic_scene_vec(

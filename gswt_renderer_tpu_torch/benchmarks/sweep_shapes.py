@@ -35,7 +35,7 @@ from ..io.synth import synthetic_scene_vec
 from ..ops import kernels
 from ..render.pipeline import RendererConfig
 from .headline import LEG_S, bench_textures, bench_user_data, fly_path
-from .timing import device_label
+from .timing import open_device
 
 DEFAULT_GRID = ("64x32x256,64x32x256c,32x32x256,32x16x128,32x16x128c,"
                 "16x16x128,16x16x128c")
@@ -129,10 +129,7 @@ def main(argv=None):
     ap.add_argument("--map-half", type=int, default=48)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    device = kernels.resolve_device(args.device)
-    print(f"[sweep] device: {device_label(device)}", flush=True)
-    if device.type == "cuda":
-        kernels.build_all()
+    device = open_device(args.device, "[sweep]")
     configs = parse_grid(args.grid)
     if not configs:
         ap.error("--grid names no entry")

@@ -5,7 +5,57 @@ from __future__ import annotations
 import subprocess
 import time
 
+import numpy as np
 import torch
+
+from ..ops import kernels
+
+
+def open_device(device, tag: str) -> torch.device:
+    """The device a script runs on (the card unless asked for the CPU; no
+    fallback), announced with its label as `<tag> device: <label>`, with
+    the CUDA kernels built first on the card."""
+    device = kernels.resolve_device(device)
+    print(f"{tag} device: {device_label(device)}", flush=True)
+    if device.type == "cuda":
+        kernels.build_all()
+    return device
+
+
+def device_complete_ms(fn, drain, n: int, warm: int = 2) -> list:
+    """Host-clock ms of each of n calls of fn, each stopped after drain()
+    (on the card a synchronize: the call's device work is done), after
+    `warm` untimed calls."""
+    for _ in range(warm):
+        fn()
+    drain()
+    ts = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        drain()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return ts
+
+
+def event_ms(fn, n: int, device, reps: int = 1) -> list:
+    """ms per call of fn in each of n windows of `reps` back-to-back calls:
+    CUDA events on the card, the host clock on the CPU (after one warm-up
+    call)."""
+    return [time_ms(fn, reps, device) for _ in range(n)]
+
+
+def spread(ts) -> dict:
+    """The median and the min-max of a list of times."""
+    a = np.asarray(ts, np.float64)
+    return dict(median=float(np.median(a)), min=float(a.min()),
+                max=float(a.max()), n=int(a.size))
+
+
+def fmt(s: dict) -> str:
+    """A spread as `median M ms (min-max A-B, n N)`."""
+    return (f"median {s['median']:.3f} ms (min-max {s['min']:.3f}-"
+            f"{s['max']:.3f}, n {s['n']})")
 
 
 def time_ms(fn, reps: int, device) -> float:

@@ -31,7 +31,7 @@ from ..core.camera import Camera
 from ..core.config import RenderConfig, UserData
 from ..core.metrics import IncrementalMA, get_time_milliseconds
 from ..ops.kernels import resolve_device
-from ..render.pipeline import Renderer, RendererConfig
+from ..render.pipeline import Renderer, RendererConfig, _hprof
 from ..render.uniforms import SceneParams
 from ..tiles.wangtile import WangTileEngine
 from .control import FlyPathControl, KeyboardFlyControl
@@ -328,8 +328,9 @@ class Engine:
         if self.status != EngineStatus.RENDER:
             return None
 
-        moved = self.update()
-        self._pump_builder(update_worker and moved)
+        with _hprof("frame.update_pump"):
+            moved = self.update()
+            self._pump_builder(update_worker and moved)
         if self.cur_scene is None or self.cur_sort is None:
             return None
         if self.freeze_frame and not self.step_frame:
@@ -337,9 +338,11 @@ class Engine:
         self.step_frame = False
 
         if self._staged_sort is not self.cur_sort:
-            self._staged = self.renderer.stage(
-                self.cur_sort, self.camera, self.render_config.culling_dist
-            )
+            with _hprof("frame.stage"):
+                self._staged = self.renderer.stage(
+                    self.cur_sort, self.camera,
+                    self.render_config.culling_dist
+                )
             self._staged_sort = self.cur_sort
 
         self.scene_params = SceneParams.from_data(

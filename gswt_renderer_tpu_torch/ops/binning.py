@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from ..core.hostprof import _hprof
+
 
 def grid_dims(image_wh, tile_wh):
     """(ntx, nty, n_tiles) with packing-budget validation."""
@@ -36,11 +38,13 @@ def grid_dims(image_wh, tile_wh):
     return ntx, nty, n_tiles
 
 
-def _expand(x0, y0, nx, count, *, ntx):
+def _expand(x0, y0, nx, count, *, ntx, section):
     """Enumerate the pairs of inclusive tile bboxes, primitive-major:
     pair k of primitive i covers tile (x0 + k % nx, y0 + k // nx).
-    Returns (prim [total] i64, tile [total] i64). One host sync."""
-    total = int(count.sum())
+    Returns (prim [total] i64, tile [total] i64). One host sync, the read
+    of the total, timed as the host-profiler section `section`."""
+    with _hprof(section):
+        total = int(count.sum())
     prim = torch.repeat_interleave(
         torch.arange(count.shape[0], device=count.device), count,
         output_size=total)
@@ -58,7 +62,8 @@ def expand_bboxes(x0, x1, y0, y1, ok, *, ntx):
     inside each tile. Returns (sorted_key, sorted_prim, total)."""
     nx = torch.where(ok, x1 - x0 + 1, 0)
     ny = torch.where(ok, y1 - y0 + 1, 0)
-    prim, tile = _expand(x0, y0, nx, nx * ny, ntx=ntx)
+    prim, tile = _expand(x0, y0, nx, nx * ny, ntx=ntx,
+                         section="sync.expand_bboxes")
     sorted_key, order = torch.sort(tile, stable=True)
     return sorted_key, prim[order], prim.shape[0]
 
@@ -86,7 +91,8 @@ def build_worklist(range_start, range_end, *, chunk: int):
     c1 = torch.div(re_ - 1, chunk, rounding_mode="floor")
     n_e = torch.where(live, c1 - c0 + 1, 0)
     tiles = torch.arange(rs.shape[0], device=rs.device)
-    n = int(n_e.sum())
+    with _hprof("sync.worklist"):
+        n = int(n_e.sum())
     entry_tile = torch.repeat_interleave(tiles, n_e, output_size=n)
     first = torch.cumsum(n_e, 0) - n_e
     rank = torch.arange(n, device=rs.device) - first[entry_tile]
@@ -340,7 +346,8 @@ def bin_pairs(p, *, image_wh, tile_wh, chunk: int, exact: bool = True,
     nx = torch.where(ok, x1 - x0 + 1, 0)
     ny = torch.where(ok, y1 - y0 + 1, 0)
     count0 = nx * ny
-    prim, tiles = _expand(x0, y0, nx, count0, ntx=ntx)
+    prim, tiles = _expand(x0, y0, nx, count0, ntx=ntx,
+                          section="sync.bin_pairs")
     n_pairs = prim.shape[0]
 
     if occ_zimg is not None:

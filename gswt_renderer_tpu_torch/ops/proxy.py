@@ -29,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.hostprof import _hprof
 from .project import _bilinear_wrap4
 from .skybox import pixel_rays
 from .texsample import factored_mip_trilinear
@@ -79,7 +80,8 @@ def atlas_words(atlas):
 
 def _select_level(meta, lvl_i):
     """Per-pixel (w, h, off) of mip level lvl_i."""
-    tab = torch.tensor(meta, dtype=torch.int64, device=lvl_i.device)
+    with _hprof("sync.mip_levels"):  # a copy from pageable host memory
+        tab = torch.tensor(meta, dtype=torch.int64, device=lvl_i.device)
     return tab[lvl_i].unbind(-1)
 
 

@@ -252,8 +252,12 @@ def rasterize_plain(binned, depth_tiles, *, image_wh, tile_wh, chunk: int,
     the cutoff and the depth test), "visits" (pair x warp-block visits the
     mask leaves), "blocks" (pairs x warp blocks with pixels), "missed"
     (kept pair-pixels whose block the mask leaves out: 0 when the mask is
-    conservative), "tile_pairs" ([n_tiles] composited pairs per tile) and
-    "runs" ([n_tiles] run lengths in the table)."""
+    conservative), "tile_pairs" ([n_tiles] composited pairs per tile),
+    "runs" ([n_tiles] run lengths in the table), and over the worklist:
+    "entries" (its length), "skipped" (entries the early exit skips),
+    "skipped_pairs" (the run's pairs inside them), "tile_entries" and
+    "tile_needed" ([n_tiles] entries per tile, and those composited: a
+    prefix of the tile's, since a tile that saturates stays saturated)."""
     tw, th = tile_wh
     _, _, n_tiles = _grid(image_wh, tile_wh)
     p_n = tw * th
@@ -273,6 +277,7 @@ def rasterize_plain(binned, depth_tiles, *, image_wh, tile_wh, chunk: int,
         n_blocks = int((rects[:, 0] <= rects[:, 1]).sum())
         load = torch.zeros(4, dtype=torch.int64, device=dev)
         tile_pairs = torch.zeros(n_tiles, dtype=torch.int64, device=dev)
+        done = torch.zeros(et.shape, dtype=torch.bool, device=dev)
     acc = torch.zeros((n_tiles, 4, p_n), dtype=torch.float32, device=dev)
     trans = torch.ones((n_tiles, p_n), dtype=torch.float32, device=dev)
     rec = torch.zeros_like(trans) if emit_zcut else None
@@ -283,6 +288,8 @@ def rasterize_plain(binned, depth_tiles, *, image_wh, tile_wh, chunk: int,
         idx = torch.nonzero(rank == r).flatten()
         if r > 0:
             idx = idx[trans[et[idx]].amax(dim=1) >= MIN_T]
+        if masked:
+            done[idx] = True
         for b0 in range(0, idx.numel(), _PLAIN_BATCH):
             sel = idx[b0:b0 + _PLAIN_BATCH]
             tiles = et[sel]
@@ -332,6 +339,15 @@ def rasterize_plain(binned, depth_tiles, *, image_wh, tile_wh, chunk: int,
             int(x) for x in load)
         stats["tile_pairs"] = tile_pairs
         stats["runs"] = re_ - rs
+        # the run's pairs in each entry
+        n_in = torch.clamp(torch.minimum(re_[et], (ec + 1) * chunk)
+                           - torch.maximum(rs[et], ec * chunk), min=0)
+        stats["entries"] = et.numel()
+        stats["skipped"] = int((~done).sum())
+        stats["skipped_pairs"] = int(n_in[~done].sum())
+        stats["tile_entries"] = torch.bincount(et, minlength=n_tiles)
+        stats["tile_needed"] = torch.zeros_like(tile_pairs).index_add_(
+            0, et, done.long())
     if not emit_zcut:
         return acc
     # per band b = min(row // (th // SAT_BANDS), SAT_BANDS - 1): the max

@@ -29,7 +29,9 @@ bf16-rounded weights; on top of it sat_cull feeds the compositor's
 saturation-slot record of one frame into the next frame's binning. The exact
 profile follows the WGSL/oracle math and is the parity reference. The stages
 run under profiler ranges gswt.project, gswt.skybox, gswt.proxy, gswt.bin
-and gswt.raster, which chip_smoke.py's profile phase reads.
+and gswt.raster, which chip_smoke.py's profile phase reads, and under the
+host-section profiler's sections (core/hostprof.py, re-exported here: off
+unless set_host_prof(True)).
 """
 
 from __future__ import annotations
@@ -43,6 +45,8 @@ from torch.profiler import record_function
 
 from ..core.camera import Camera, CameraUniforms
 from ..core.config import RenderConfig
+from ..core.hostprof import (  # noqa: F401  (the profiler's public names)
+    HOST_PROF, _hprof, host_prof_report, set_host_prof)
 from ..core.mathutil import OPENGL_TO_WGPU
 from ..io.textures import build_mip_chain
 from ..ops import binning, project, raster
@@ -582,9 +586,10 @@ class Renderer:
     def stage_vp(self, dt: DrawTable, vp=None, culling_dist: float = 1.0):
         """stage() taking a raw view-projection matrix (builder-thread use).
         Returns numpy only: the render thread uploads it (upload_plan)."""
-        blocks, merged, _, n, truncated = self.plan_blocks_host(
-            dt, vp, culling_dist
-        )
+        with _hprof("stage.plan"):
+            blocks, merged, _, n, truncated = self.plan_blocks_host(
+                dt, vp, culling_dist
+            )
         # splats the last staged plan dropped past max_stream (the viewer's
         # /hud shows it)
         self.last_stream_truncated = truncated
@@ -594,11 +599,13 @@ class Renderer:
                 f"far splats (max_stream={self.cfg.max_stream})",
                 file=sys.stderr,
             )
-        return dict(blocks=blocks, merged=merged,
-                    draw=self.prepare_draws(dt, n))
+        with _hprof("stage.prep"):
+            draw = self.prepare_draws(dt, n)
+        return dict(blocks=blocks, merged=merged, draw=draw)
 
     def upload_plan(self, staged):
-        """The staged plan on the device; uploaded once per staged plan."""
+        """The staged plan on the device; uploaded once per staged plan.
+        Each copy from pageable host memory waits for the device."""
         if staged is not self._plan_host:
             dev = self.device
 
@@ -606,17 +613,18 @@ class Renderer:
                 return torch.as_tensor(a).to(dev)
 
             d = staged["draw"]
-            self._plan_dev = dict(
-                blocks=up(staged["blocks"]),
-                merged=up(staged["merged"]),
-                draw=dict(
-                    n_draws=d["n_draws"],
-                    single_draw=up(d["single_draw"]),
-                    tile_lod=up(d["tile_lod"]),
-                    has_corners=up(d["has_corners"]),
-                    corner_pos=up(d["corner_pos"]),
-                ),
-            )
+            with _hprof("sync.upload_plan"):
+                self._plan_dev = dict(
+                    blocks=up(staged["blocks"]),
+                    merged=up(staged["merged"]),
+                    draw=dict(
+                        n_draws=d["n_draws"],
+                        single_draw=up(d["single_draw"]),
+                        tile_lod=up(d["tile_lod"]),
+                        has_corners=up(d["has_corners"]),
+                        corner_pos=up(d["corner_pos"]),
+                    ),
+                )
             self._plan_host = staged
         return self._plan_dev
 
@@ -624,14 +632,14 @@ class Renderer:
     def pack_uniforms(self, camera: Camera, scene: SceneParams,
                       rc: RenderConfig, render_gs: bool = True):
         """One frame's packed uniforms [UNIFORMS_LEN] f32 on the device (one
-        small upload per frame)."""
+        small upload per frame, which waits for the device: a copy from
+        pageable host memory)."""
         lod_enable = list(rc.lod_enable or [True] * 16)
-        return torch.as_tensor(
-            self.pack_frame_uniforms(
-                scene, CameraUniforms(camera), lod_enable, rc.culling_dist,
-                render_gs=render_gs,
-            )
-        ).to(self.device)
+        v = torch.as_tensor(self.pack_frame_uniforms(
+            scene, CameraUniforms(camera), lod_enable, rc.culling_dist,
+            render_gs=render_gs))
+        with _hprof("sync.uniforms"):
+            return v.to(self.device)
 
     def frame_uniforms(self, camera: Camera, scene: SceneParams,
                        rc: RenderConfig, render_gs: bool = True):
@@ -715,10 +723,12 @@ class Renderer:
         previous frame's dilated saturation-slot image (binning's sat_simg).
         emit_block_demand moves binning's per-block pair demand into
         aux["block_demand"]."""
+        with _hprof("render.uniforms"):
+            uniforms = self.pack_uniforms(camera, scene, rc, render_gs)
         return self.front_packed(
-            plan, self.pack_uniforms(camera, scene, rc, render_gs), scene,
-            rc, use_skybox=use_skybox, use_proxy=use_proxy,
-            sat_zimg=sat_zimg, emit_block_demand=emit_block_demand)
+            plan, uniforms, scene, rc, use_skybox=use_skybox,
+            use_proxy=use_proxy, sat_zimg=sat_zimg,
+            emit_block_demand=emit_block_demand)
 
     def front_packed(self, plan, uniforms, scene: SceneParams,
                      rc: RenderConfig, *, use_skybox: bool = False,
@@ -726,14 +736,16 @@ class Renderer:
                      emit_block_demand: bool = False):
         """front() from packed uniforms ([UNIFORMS_LEN] f32 on the device,
         pack_uniforms or a row of parallel/batched.py pack_camera_batch)."""
-        unpacked = self.unpack_frame_uniforms(uniforms)
-        with record_function("gswt.project"):
-            p = self._project(plan, unpacked, scene, rc)
+        with _hprof("render.front.project"):
+            unpacked = self.unpack_frame_uniforms(uniforms)
+            with record_function("gswt.project"):
+                p = self._project(plan, unpacked, scene, rc)
         bg, depth_tiles, aux = self.background(
             unpacked, scene, rc, use_skybox=use_skybox, use_proxy=use_proxy)
-        binned, bin_aux = self.bin_pairs(
-            p, depth_tiles, use_proxy=use_proxy, sat_zimg=sat_zimg,
-            emit_block_demand=emit_block_demand)
+        with _hprof("render.front.bin"):
+            binned, bin_aux = self.bin_pairs(
+                p, depth_tiles, use_proxy=use_proxy, sat_zimg=sat_zimg,
+                emit_block_demand=emit_block_demand)
         aux.update(bin_aux)
         return binned, bg, depth_tiles, aux
 
@@ -749,14 +761,14 @@ class Renderer:
         scene_d, cam_d = unpacked[0], unpacked[1]
         aux = {}
         if use_skybox:
-            with record_function("gswt.skybox"):
+            with _hprof("render.front.skybox"), record_function("gswt.skybox"):
                 bg = render_skybox(cam_d, image_wh, self.skybox_tex,
                                    equirect=self.skybox_equirect)
         else:
             bg = torch.zeros((c.height, c.width, 4), dtype=torch.float32,
                              device=self.device)
         if use_proxy:
-            with record_function("gswt.proxy"):
+            with _hprof("render.front.proxy"), record_function("gswt.proxy"):
                 pcol, depth, hit, paux = self.proxy_pass(
                     cam_d, scene_d, scene, rc)
                 bg = torch.where(hit[..., None], pcol, bg)
@@ -928,7 +940,8 @@ class Renderer:
         """Block until the device has finished every frame enqueued so far
         (a frame rendered without readback returns before it is done)."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with _hprof("render.drain"):
+                torch.cuda.synchronize(self.device)
 
     def render(self, dt: DrawTable, camera: Camera, scene: SceneParams,
                render_config: RenderConfig | None = None, *,
@@ -950,9 +963,13 @@ class Renderer:
         binned, bg, depth_tiles, aux = self.front(
             self.upload_plan(staged), camera, scene, rc, render_gs=render_gs,
             use_skybox=use_skybox, use_proxy=use_proxy, sat_zimg=sat_zin)
-        img = self.back(binned, bg, depth_tiles, use_proxy=use_proxy,
-                        emit_zcut=sat_zin is not None)
+        with _hprof("render.back"):
+            img = self.back(binned, bg, depth_tiles, use_proxy=use_proxy,
+                            emit_zcut=sat_zin is not None)
         if sat_zin is not None:
             img, self.sat_zimg = img
         self.last_aux = aux
-        return img.cpu().numpy() if as_numpy else img
+        if not as_numpy:
+            return img
+        with _hprof("sync.readback"):
+            return img.cpu().numpy()

@@ -18,7 +18,14 @@ PKG = ROOT / "gswt_renderer_tpu_torch"
 # and import one another by bare name)
 FORBIDDEN = ("jax", "jaxlib", "gswt_renderer_tpu", "bench", "benchmarks",
              "mergesorted", "micro_merge", "micro_raster",
-             "micro_blockgather", "sweep_shapes", "batched_ab")
+             "micro_blockgather", "sweep_shapes", "batched_ab",
+             "profile_hostloop", "profile_frame", "stage_times",
+             "quick_full", "cull_ab", "depth_cull_ab", "proxydiv_ab",
+             "saturation", "configs", "micro_background", "inversion_ab")
+# the port's scripts that run the fixed-camera scene or the host profile
+NEW_SCRIPTS = ["profile_hostloop", "profile_frame", "stage_times",
+               "quick_full", "cull_ab", "depth_cull_ab", "proxydiv_ab",
+               "saturation", "configs", "micro_background", "inversion_ab"]
 
 
 def _modules():
@@ -82,7 +89,7 @@ def test_entry_points_default_to_the_card():
 
 @pytest.mark.parametrize("module", ["headline", "micro_merge", "micro_raster",
                                     "micro_blockgather", "batched_ab",
-                                    "sweep_shapes"])
+                                    "sweep_shapes"] + NEW_SCRIPTS)
 def test_benchmark_scripts_default_to_the_card(module):
     """Every script of the benchmarks sub-package asks for CUDA unless given
     --device cpu, and raises before doing any work on a host without it."""
@@ -101,7 +108,7 @@ def test_the_benchmarks_sub_package_is_covered():
              if m.startswith("gswt_renderer_tpu_torch.benchmarks.")}
     assert {"headline", "mergesorted", "micro_merge", "micro_raster",
             "micro_blockgather", "timing", "batched_ab",
-            "sweep_shapes"} <= names
+            "sweep_shapes", *NEW_SCRIPTS} <= names
 
 
 def test_the_viewer_and_parallel_modules_are_covered():
