@@ -72,9 +72,20 @@ Phases, each printing its own line; any failure raises (non-zero exit):
 10. host sections: every call of a few exact and of a few fast frames that
    waits for the device (PyTorch's sync debug mode), each with the
    host-profiler section open at it, failing if one lies outside a sync.*
-   section; profile_hostloop's 24 fast 1080p frames along the first leg,
-   with the builder running and frozen ([hostprof] lines);
-11. the fixed-camera and A/B scripts through their main() at their
+   section or render.drain; profile_hostloop's 24 fast 1080p frames along
+   the first leg at depth 2 and at depth 0, with the builder running and
+   frozen ([hostprof] lines, each beside the card's name and power
+   limit);
+11. in flight: on the bench scene at 1080p, in the exact and in the fast
+   profile, 8 frames of the first leg rendered at pipeline_depth 2 from
+   one plan under PyTorch's sync debug mode "error" (the only wait the
+   drain of the frame two behind, which sync debug mode does not see: an
+   event's synchronize), each image after the drain EQUAL to the depth-0
+   frame of the same camera and plan once the pair budgets have grown
+   ([inflight] lines, with overflow_frames over the fly-through);
+   profile_hostloop at depth 2 and at depth 0, each with the builder
+   running and frozen;
+12. the fixed-camera and A/B scripts through their main() at their
    smallest honest setting, each in a launch-count window of its own
    ([bench] <script> lines): profile_frame, stage_times, quick_full --ab,
    cull_ab (with and without the ellipse-tile cull), depth_cull_ab,
@@ -385,39 +396,133 @@ def phase_syncs(torch, eng, fp, label, n: int = 3):
                            f"{bad}, or none found")
 
 
-def phase_hostprof(need, per_frame, n: int = 24):
-    """[hostprof] profile_hostloop's n fast 1080p frames with the builder
-    running and with it frozen, each in a launch-count window of its
-    own."""
+def phase_hostprof(need, per_frame, smi, n: int = 24):
+    """[hostprof] profile_hostloop's n fast 1080p frames at depth 2 (two
+    frames in flight, the Engine's) and at depth 0 (each frame read at its
+    end), with the builder running and with it frozen, each in a
+    launch-count window of its own; every line carries the card's name and
+    power limit (`smi`)."""
     from gswt_renderer_tpu_torch.benchmarks import profile_hostloop
     from gswt_renderer_tpu_torch.ops import kernels
 
-    for frozen in (False, True):
-        kernels.LAUNCHES.clear()
-        res = profile_hostloop.main(["-n", str(n)]
-                                    + (["--frozen"] if frozen else []))
-        launches = dict(kernels.LAUNCHES)
-        label = "builder frozen" if frozen else "builder running"
-        need(launches, per_frame, n, f"hostprof, {label}")
-        sec = res["sections"]
-        for name in ("frame.update_pump", "render.uniforms", "sync.uniforms",
-                     "render.front.project", "render.front.skybox",
-                     "render.front.proxy", "render.front.bin", "render.back",
-                     "sync.bin_pairs", "sync.expand_bboxes"):
-            if sec.get(name, {}).get("n") != n:
-                raise RuntimeError(f"[hostprof] section {name}: "
-                                   f"{sec.get(name)} in {n} frames")
-        per = {k: v["self_ms"] / n for k, v in sec.items()}
-        top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
-        print(f"[hostprof] {label}, {n} fast 1080p frames: wall "
-              f"{res['wall_ms']:.3f} ms/frame; render thread sections "
-              f"{res['accounted_ms']:.3f} = sync waits {res['sync_ms']:.3f} "
-              f"+ the rest {res['rest_ms']:.3f}, unaccounted "
-              f"{res['unaccounted_ms']:.3f}; builder staging "
-              f"{res['builder_ms']:.3f} ms/frame, load "
-              f"{res['builder_load']:.3f}; self ms/frame "
-              + ", ".join(f"{k} {v:.3f}" for k, v in top)
-              + f"; launches {launches}")
+    for depth in (2, 0):
+        for frozen in (False, True):
+            kernels.LAUNCHES.clear()
+            res = profile_hostloop.main(
+                ["-n", str(n), "--depth", str(depth)]
+                + (["--frozen"] if frozen else []))
+            launches = dict(kernels.LAUNCHES)
+            label = (f"depth {depth}, "
+                     f"{'builder frozen' if frozen else 'builder running'}")
+            need(launches, per_frame, n, f"hostprof, {label}")
+            sec = res["sections"]
+            # each frame pumps once and launches once, and once more for
+            # each depth-0 retry (a frame that overflowed a budget, rendered
+            # again); depth 2 completes the frames beyond the depth in
+            # render.drain and the rest in the script's drain, depth 0
+            # reads each launch's counts at its end (sync.aux)
+            tries = n + res["overflow_retries"]
+            want = {"frame.update_pump": n}
+            for name in ("render.uniforms", "render.front.project",
+                         "render.front.skybox", "render.front.proxy",
+                         "render.front.bin", "render.back", "render.aux"):
+                want[name] = tries
+            if depth:
+                want["render.drain"] = n + 1
+            else:
+                want.update({"sync.aux": tries, "render.drain": 1})
+            got = {k: sec.get(k, {}).get("n") for k in want}
+            if got != want or (depth and res["overflow_retries"]):
+                raise RuntimeError(f"[hostprof] {label}: sections entered "
+                                   f"{got}, want {want}; retries "
+                                   f"{res['overflow_retries']}")
+            old = [k for k in ("sync.uniforms", "sync.upload_plan",
+                               "sync.bin_pairs", "sync.expand_bboxes",
+                               "sync.mip_levels") if k in sec]
+            if old or (depth and "sync.aux" in sec):
+                raise RuntimeError(f"[hostprof] {label}: a frame waited "
+                                   f"inside itself: {old or 'sync.aux'}")
+            per = {k: v["self_ms"] / n for k, v in sec.items()}
+            top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
+            waits = {k: round(v, 3) for k, v in per.items()
+                     if k.startswith("sync.") or k == "render.drain"}
+            print(f"[hostprof] {label}, {n} fast 1080p frames ({smi}): wall "
+                  f"{res['wall_ms']:.3f} ms/frame; render thread sections "
+                  f"{res['accounted_ms']:.3f} = waits {res['sync_ms']:.3f} "
+                  f"{waits} + dispatch {res['rest_ms']:.3f}, unaccounted "
+                  f"{res['unaccounted_ms']:.3f}; builder staging "
+                  f"{res['builder_ms']:.3f} ms/frame, load "
+                  f"{res['builder_load']:.3f}; overflow frames "
+                  f"{res['overflow_frames']}, retries "
+                  f"{res['overflow_retries']}; self ms/frame "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in top)
+                  + f"; launches {launches}")
+
+
+def phase_inflight(torch, eng, fp, label, smi, n: int = 8):
+    """[inflight] n frames of the first leg from the Engine's current plan:
+    first at depth 0 (each read at its end, the budgets growing from every
+    frame), then at pipeline_depth 2 under PyTorch's sync debug mode
+    "error", which raises at any wait a tensor operation makes; the only
+    wait there is the drain of the frame two behind (an event's
+    synchronize, in render.drain, which the debug mode does not see). After
+    the drain every pipelined image must EQUAL the depth-0 image of its
+    camera, and no pipelined frame may overflow a budget."""
+    from gswt_renderer_tpu_torch.core import hostprof
+
+    r = eng.renderer
+    staged = eng._staged
+    kw = dict(render_gs=eng.render_gs, use_skybox=eng.use_skybox,
+              use_proxy=eng.use_proxy, staged=staged, as_numpy=False)
+    times = [15000.0 * i / n for i in range(n)]
+
+    def frames(depth):
+        imgs, held = [], []
+        fp.reset_path()
+        fp.start_path()
+        for t in times:
+            fp.handle_events(eng.camera, now_ms=t)
+            imgs.append(r.render(None, eng.camera, eng.scene_params,
+                                 eng.render_config, pipeline_depth=depth,
+                                 **kw))
+            held.append(len(r._inflight))
+        return imgs, held
+
+    r.drain()
+    ref, _ = frames(0)
+    r.drain()
+    demand, overflow0 = r.pair_budget.demand, r.overflow_frames
+    hostprof.HOST_PROF.clear()
+    hostprof.set_host_prof(True)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        piped, held = frames(2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        hostprof.set_host_prof(False)
+    sec = {k: v[0] for k, v in hostprof.HOST_PROF.items()}
+    hostprof.HOST_PROF.clear()
+    r.drain()
+    waits = {k: v for k, v in sec.items()
+             if k.startswith("sync.") or k == "render.drain"}
+    if waits != {"render.drain": n} or held != [1] + [2] * (n - 1):
+        raise RuntimeError(f"[inflight] {label}: the pipelined frames "
+                           f"waited in {waits}, frames in flight {held}")
+    differ = [i for i, (a, b) in enumerate(zip(ref, piped))
+              if not torch.equal(a, b)]
+    if differ or r.overflow_frames != overflow0:
+        raise RuntimeError(f"[inflight] {label}: pipelined frames {differ} "
+                           f"differ from their depth-0 frames, overflow "
+                           f"frames {r.overflow_frames - overflow0}")
+    print(f"[inflight] {label}: {n} frames at depth 2 under sync debug "
+          f"mode \"error\": no wait but the drain of the frame two behind "
+          f"(render.drain entered {sec['render.drain']} times, frames in "
+          f"flight after each {held}), each image bit-equal to its depth-0 "
+          f"frame; stream {staged['blocks'].shape[1] * 256} lanes, pair "
+          f"demand seen {demand} (capacity "
+          f"{r.pair_budget.capacity(staged['blocks'].shape[1] * 256, r.cfg.chunk)}"
+          f"), proxy pair demand {r.proxy_budget.demand}; overflow_frames "
+          f"{r.overflow_frames} over this Engine's frames so far ({smi})")
 
 
 def phase_scripts(need, per_frame):
@@ -750,7 +855,8 @@ def main():
         kernels, project, proxy, raster, skybox, texsample, trirast)
     from gswt_renderer_tpu_torch.ops.blockgather import (
         block_gather, block_gather_plain)
-    from gswt_renderer_tpu_torch.render.pipeline import RendererConfig
+    from gswt_renderer_tpu_torch.render.pipeline import (
+        PROXY_CHUNK, SEED_PAIRS_PER_TRIANGLE, PairBudget, RendererConfig)
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -818,17 +924,21 @@ def main():
         counts and pairs kept after the culls. Over an opaque sky alpha is
         1 but for `alpha_share` of the pixels (the half-res proxy's
         silhouette: its colour, alpha included, is upsampled bilinearly and
-        its hit mask nearest, as in the JAX package)."""
+        its hit mask nearest, as in the JAX package). Each frame is
+        launched as Engine.frame launches it (pipeline_depth 2) and then
+        completed with every frame in flight (renderer.drain), so its wall
+        time is device-complete and last_aux holds its own counts."""
         if moving:
             fp.reset_path()
             fp.start_path()
         frame_ms, pairs, kept, off = [], [], [], 0.0
+        overflow0 = eng.renderer.overflow_frames
         for i in range(n_frames):
             if moving:
                 fp.handle_events(eng.camera, now_ms=15000.0 * i / n_frames)
             t0 = time.perf_counter()
             img = eng.frame(readback=False)
-            torch.cuda.synchronize()
+            eng.renderer.drain()
             frame_ms.append((time.perf_counter() - t0) * 1e3)
             if img is None or tuple(img.shape) != (height, width, 4):
                 raise RuntimeError(f"{label} frame {i} missing or misshapen")
@@ -847,7 +957,8 @@ def main():
             pairs.append(eng.renderer.last_aux["n_pairs"])
             kept.append(int(eng.renderer.last_aux["n_pairs_kept"]))
         return dict(ms=frame_ms, pairs=pairs, kept=kept, alpha_off=off,
-                    img=img)
+                    img=img,
+                    overflow=eng.renderer.overflow_frames - overflow0)
 
     def report(label, run, launches):
         q1, q2, q3 = np.percentile(run["ms"], [25, 50, 75])
@@ -856,7 +967,8 @@ def main():
               f"{run['ms'][0]:.2f}), pairs/frame median "
               f"{int(np.median(run['pairs']))}, kept after the culls "
               f"{int(np.median(run['kept']))}, alpha off 1 on at most "
-              f"{run['alpha_off']:.2e} of the pixels, launches {launches}")
+              f"{run['alpha_off']:.2e} of the pixels, overflow frames "
+              f"{run['overflow']}, launches {launches}")
 
     def need(launches, names, n, label):
         for name in names:
@@ -1036,12 +1148,31 @@ def main():
     # inputs (the first fly-path camera), at the exact profile's full
     # resolution and at the fast profile's half resolution
     first_camera(eng)
+    # one exact full-config frame there grows the proxy pair budget from
+    # its full-resolution grid raster
+    eng.frame()
+    first_camera(eng)
     scene_d, cam_d = r.frame_uniforms(eng.camera, eng.scene_params,
                                       eng.render_config)[:2]
     rcfg = eng.render_config
     surface = int(eng.scene_params.surface_type)
     ptile = (r.cfg.proxy_tile_w, r.cfg.proxy_tile_h)
     p_n_proxy = ptile[0] * ptile[1]
+
+    def tri_capacity(planes, bbox, ok, wh):
+        """The proxy pair slots a frame of this camera gives the triangle
+        raster at wh: the budget once a frame's demand at wh has grown it
+        (at the exact profile's full resolution, the Renderer's own)."""
+        n = int(trirast.bin_triangles(planes, bbox, ok, image_wh=wh,
+                                      tile_wh=ptile, capacity=PROXY_CHUNK)[3])
+        budget = PairBudget(SEED_PAIRS_PER_TRIANGLE)
+        budget.absorb(n)
+        cap = budget.capacity(r.proxy_tris.shape[1], PROXY_CHUNK)
+        own = r.proxy_budget.capacity(r.proxy_tris.shape[1], PROXY_CHUNK)
+        if wh == image_wh and cap != own:
+            raise RuntimeError(f"trirast: {cap} slots at {wh}, the exact "
+                               f"frame's budget gives {own}")
+        return cap
 
     def tri_load(label, rows, t_rs, t_re, tri_kw, sorted_key=None,
                  sorted_tri=None, bbox=None):
@@ -1127,11 +1258,18 @@ def main():
             cam_d, scene_d, wh, r.hm4, r.height_map_wh, r.proxy_verts,
             r.proxy_tris, surface_type=surface,
             height_offset=float(rcfg.proxy_height))
+        tri_cap = tri_capacity(planes, bbox, ok, wh)
         rows, t_rs, t_re, n_tri_pairs, skey, stri = trirast.bin_triangles(
-            planes, bbox, ok, image_wh=wh, tile_wh=ptile, return_index=True)
+            planes, bbox, ok, image_wh=wh, tile_wh=ptile, capacity=tri_cap,
+            return_index=True)
+        n_tri_pairs = int(n_tri_pairs)
+        if n_tri_pairs > tri_cap:
+            raise RuntimeError(f"trirast {label}: {n_tri_pairs} pairs beyond "
+                               f"the proxy budget's {tri_cap}")
         tri_kw = dict(image_wh=wh, tile_wh=ptile, chunk=128)
-        st = tri_load(f"{label} ({int(ok.sum())} triangles)", rows, t_rs,
-                      t_re, tri_kw, skey, stri, bbox)
+        st = tri_load(f"{label} ({int(ok.sum())} triangles, {n_tri_pairs} "
+                      f"pairs in the proxy budget's {tri_cap} slots)", rows,
+                      t_rs, t_re, tri_kw, skey, stri, bbox)
         k_out, tri_err = trirast_equal(label, rows, t_rs, t_re, tri_kw)
         ntx_, n_t = -(-wh[0] // ptile[0]), t_rs.shape[0]
         # the two kernels apart: entries into the fold's scratch, then the
@@ -1152,8 +1290,10 @@ def main():
             raise RuntimeError(f"trirast_fold {label}: the kernel is not "
                                f"its plain version")
         multi = int((st["chunks"] > 1).sum())
-        tri_bytes = 4 * (rows.numel() + t_rs.numel() + t_re.numel()
-                         + k_out.numel())
+        # the rows of the pairs in runs: the slots past the demand are
+        # never read
+        tri_bytes = 4 * (rows.shape[0] * n_tri_pairs + t_rs.numel()
+                         + t_re.numel() + k_out.numel())
         tri_bounds = (tri_bytes / HBM_BYTES_PER_S,
                       st["covered"] * TRIRAST_FP32_OPS / FP32_OPS_PER_S)
         every_ms = (n_tri_pairs * p_n_proxy * TRIRAST_FP32_OPS
@@ -1274,10 +1414,12 @@ def main():
         the plain spec on the planes; its time by events, its own device
         time, and the wrapper's host time per call."""
         n_s = wh[0] * wh[1]
-        _, u_px, v_px, _, hit_px, _ = proxy.raster_map_grid(
+        _, u_px, v_px, _, hit_px, _, _ = proxy.raster_map_grid(
             cam_d, scene_d, wh, r.hm4, r.height_map_wh, r.proxy_verts,
             r.proxy_tris, surface_type=surface,
-            height_offset=float(rcfg.proxy_height), tile_wh=ptile, chunk=128)
+            height_offset=float(rcfg.proxy_height), tile_wh=ptile, chunk=128,
+            capacity=r.proxy_budget.capacity(r.proxy_tris.shape[1],
+                                             PROXY_CHUNK))
         rho_px = proxy._uv_footprint(u_px, v_px, float(r.proxy_wh[0]),
                                      float(r.proxy_wh[1]))
         pyr_meta, l_min = r.proxy_pyr_meta
@@ -1534,6 +1676,7 @@ def main():
     # host waits for the device
     phase_profile(torch, eng, fp, "exact")
     phase_syncs(torch, eng, fp, "exact")
+    phase_inflight(torch, eng, fp, "exact", smi)
 
     # 8a. [parallel] the stream cut into 4 segments, folded, and dp = sp = 1
     # through NCCL, on the exact frame
@@ -1655,6 +1798,7 @@ def main():
     # waits for the device
     phase_profile(torch, eng, fp, "fast")
     phase_syncs(torch, eng, fp, "fast")
+    phase_inflight(torch, eng, fp, "fast", smi)
 
     # 8b. [parallel] the fast profile's 4 segments beside the exact ones, and
     # [viewer] the HTTP viewer over this Engine, then the CLI
@@ -2023,7 +2167,7 @@ def main():
 
     # 10. where the fly-through's host time goes; 11. the fixed-camera and
     # A/B scripts
-    phase_hostprof(need, per_frame)
+    phase_hostprof(need, per_frame, smi)
     phase_scripts(need, per_frame)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

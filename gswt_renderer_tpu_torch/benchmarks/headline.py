@@ -270,7 +270,8 @@ def main(argv=None):
               f"the wall clock; sort {r['sort_ms'][0]:.2f} ms x "
               f"{r['sort_trigger']:.3f}, build {r['build_ms'][0]:.2f} ms x "
               f"{r['build_trigger']:.3f}, builder load "
-              f"{r['builder_load']:.3f}", flush=True)
+              f"{r['builder_load']:.3f}, overflow frames "
+              f"{r['overflow_frames']}", flush=True)
     frames = sum(r["frames"] for r in runs)
     n_pairs = int(eng.renderer.last_aux["n_pairs"])
     alpha_off = check_frame(eng.last_image, args.width, args.height)
@@ -315,6 +316,7 @@ def main(argv=None):
             frames=[r["frames"] for r in runs],
             fps_wall=[r["fps"] for r in runs],
             stall_windows=[r["stall_windows"] for r in runs],
+            overflow_frames=[r["overflow_frames"] for r in runs],
             n_pairs=n_pairs,
             alpha_off_share=alpha_off,
             splats_per_tile=args.splats,

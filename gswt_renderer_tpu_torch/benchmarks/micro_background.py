@@ -32,6 +32,7 @@ from ..core import Camera
 from ..core.camera import CameraUniforms
 from ..core.config import RenderConfig
 from ..io.textures import build_mip_chain
+from ..ops.binning import fit_capacity
 from ..ops.proxy import _uv_footprint, make_map_grid, raster_map_grid
 from ..ops.skybox import render_skybox
 from ..ops.texsample import (
@@ -86,6 +87,13 @@ def main(argv=None):
     tab4 = dev(rng.random((4, 1 << 20), np.float32))
     idx4 = idx[: p // 4]
 
+    grid = dict(surface_type=1, height_offset=0.0, tile_wh=(64, 32),
+                chunk=128)
+    # the grid raster into the slots of its demand (a first call reads it)
+    grid["capacity"] = fit_capacity(raster_map_grid(
+        cam_d, scene_d, (w, h), hm4, (args.hm, args.hm), gv, gt,
+        capacity=128, **grid)[5], 128)
+
     passes = (
         (f"gather {p} idx x 1 comp", True, None, lambda: tab1[idx]),
         (f"gather {p} idx x 4 comp", True, None, lambda: tab4[:, idx]),
@@ -95,8 +103,7 @@ def main(argv=None):
         (f"proxy grid raster (z+uv) {w}x{h}", False, "#4 trirast + fold",
          lambda: raster_map_grid(
              cam_d, scene_d, (w, h), hm4, (args.hm, args.hm), gv, gt,
-             surface_type=1, height_offset=0.0, tile_wh=(64, 32),
-             chunk=128)),
+             **grid)),
         (f"mip trilinear sample {w}x{h}", False, "#6 mip_trilinear",
          lambda: factored_mip_trilinear(pyr, pyr_meta, l_min, u, v, rho,
                                         n_ch=3)),

@@ -2,19 +2,24 @@
 """Host-section profile of the pipelined bench frame loop.
 
     python -m gswt_renderer_tpu_torch.benchmarks.profile_hostloop [-n 48]
+        [--depth 2] [--frozen]
 
 Runs the headline's Engine (full config, the fast profile, the builder
 thread on; ``headline.make_engine``), warms up on the fly path's first 15 s
 leg, then renders `-n` frames along that leg without readback, as the
-headline does, with the host-section profiler on (``render.pipeline.
+headline does, at Engine.pipeline_depth `--depth` (2, the Engine's: two
+frames in flight; 0: each frame read at its end), with the host-section
+profiler on (``render.pipeline.
 set_host_prof``; it is off again when the script returns). Prints the wall
 ms per frame (the clock stopped after a synchronize), the median gap
 between two frames' dispatch, ``host_prof_report()``, and per frame the
 render thread's host time the sections account for: the ``sync.*``
-sections (where the host waits for the device) apart from the rest, and
+sections and ``render.drain`` (where the host waits for the device) apart
+from the rest, and
 the remainder no section covers; beside them the builder thread's staging
 (``stage.plan``, ``stage.prep``), which overlaps the frames, its load and
-the pairs the last frame kept. --frozen renders the same frames with the
+the pairs the last frame kept, and the profiled frames that overflowed a
+pair budget (depth 2) or were rendered again for it (depth 0). --frozen renders the same frames with the
 builder frozen (Engine.lock_tile and lock_sort: no build, no sort, the
 last sort drawn), which shows what the builder's work beside the frames
 costs them. Runs on the card unless given --device cpu; the size arguments
@@ -66,12 +71,15 @@ def main(argv=None):
                     help="seconds of path between warm-up frames")
     ap.add_argument("--frozen", action="store_true",
                     help="freeze the builder for the profiled frames")
+    ap.add_argument("--depth", type=int, default=2,
+                    help="frames in flight (Engine.pipeline_depth)")
     scene_args(ap)
     args = ap.parse_args(argv)
     device = open_device(args.device, "[hostloop]")
     eng = make_engine(synthetic_scene_vec(
         n_lod=args.lods, splats_per_tile=args.splats, lod_decay=2, seed=0),
         args.width, args.height, device, map_half=args.map_half)
+    eng.pipeline_depth = args.depth
     try:
         fp = fly_path(LEG_S)
         fp.reset_path()
@@ -85,6 +93,7 @@ def main(argv=None):
                    eng.build_trigger_ma):
             ma.clear()
         eng.lock_tile = eng.lock_sort = args.frozen
+        overflow0, retries = eng.renderer.overflow_frames, 0
         pipeline.HOST_PROF.clear()
         pipeline.set_host_prof(True)
         try:
@@ -96,6 +105,7 @@ def main(argv=None):
                 fp.handle_events(eng.camera,
                                  now_ms=LEG_S * 1000.0 * i / args.n)
                 eng.frame(readback=False)
+                retries += eng.renderer.last_overflow_retries
                 stamps.append(time.perf_counter())
             eng.renderer.drain()
             wall_ms = (time.perf_counter() - t0) * 1e3 / args.n
@@ -109,10 +119,11 @@ def main(argv=None):
                          eng.build_trigger_ma.calc()[0])
         load = (s_avg * s_trig + b_avg * b_trig) / wall_ms
         kept = int(eng.renderer.last_aux["n_pairs_kept"])
+        overflow = eng.renderer.overflow_frames - overflow0
     finally:
         eng.shutdown()
-    print(f"[hostloop] {args.width}x{args.height}, {args.n} frames"
-          f"{', the builder frozen' if args.frozen else ''}: wall "
+    print(f"[hostloop] {args.width}x{args.height}, {args.n} frames at depth "
+          f"{args.depth}{', the builder frozen' if args.frozen else ''}: wall "
           f"{wall_ms:.3f} ms/frame (median dispatch gap {gap_ms:.3f} ms)")
     print(pipeline.host_prof_report())
     print(f"[hostloop] render thread per frame: sections "
@@ -120,9 +131,12 @@ def main(argv=None):
           f"the rest {acc['rest_ms']:.3f}; unaccounted "
           f"{acc['unaccounted_ms']:.3f} ms; builder thread staging "
           f"{acc['builder_ms']:.3f} ms/frame (overlapped)")
-    print(f"[hostloop] builder_load {load:.3f}, n_pairs_kept {kept}",
+    print(f"[hostloop] builder_load {load:.3f}, n_pairs_kept {kept}, "
+          f"overflow_frames {overflow}, overflow retries {retries}",
           flush=True)
-    return dict(frames=args.n, frozen=args.frozen, wall_ms=wall_ms,
+    return dict(frames=args.n, frozen=args.frozen, depth=args.depth,
+                wall_ms=wall_ms, overflow_frames=overflow,
+                overflow_retries=retries,
                 gap_ms=gap_ms,
                 sections={k: dict(n=e[0], total_ms=e[1] * 1e3,
                                   self_ms=e[2] * 1e3)

@@ -26,6 +26,7 @@ import torch
 
 from ..io.synth import synthetic_scene_vec
 from ..ops import kernels, proxy, trirast
+from ..ops.binning import fit_capacity
 from ..ops.kernels import resolve_device
 from . import headline
 from .timing import device_label, time_ms
@@ -97,8 +98,12 @@ def main(argv=None):
                 cam_d, scene_d, wh, r.hm4, r.height_map_wh, r.proxy_verts,
                 r.proxy_tris, surface_type=int(eng.scene_params.surface_type),
                 height_offset=float(eng.render_config.proxy_height))
+            # the table of the demand itself (a first call reads it)
+            kw = dict(image_wh=wh, tile_wh=ptile)
+            n = trirast.bin_triangles(planes, bbox, ok, capacity=128,
+                                      **kw)[3]
             rows, rs, re_, _ = trirast.bin_triangles(
-                planes, bbox, ok, image_wh=wh, tile_wh=ptile)
+                planes, bbox, ok, capacity=fit_capacity(n, 128), **kw)
             want = trirast.rasterize_triangles_plain(
                 rows, rs, re_, image_wh=wh, tile_wh=ptile, chunk=128)
             scratch = trirast.fold_scratch(rows.shape[1], ptile, 128, dev)

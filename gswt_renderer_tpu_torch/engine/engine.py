@@ -145,6 +145,10 @@ class Engine:
         self.freeze_frame = False   # frozen-frame stepping (state.rs:378-382)
         self.step_frame = False
         self.synchronous = synchronous
+        # frames kept in flight when not reading back: a frame returns once
+        # launched and completes pipeline_depth frames later
+        # (Renderer.render), so the host's dispatch overlaps the device
+        self.pipeline_depth = 2
 
         self.wang = WangTileEngine(scene_vec)
         rc = renderer_config or RendererConfig(
@@ -318,7 +322,10 @@ class Engine:
     def frame(self, update_worker: bool = True, readback: bool = True):
         """One frame: update camera, pump the builder, render.
         Returns the image ([H,W,4] numpy, or a device tensor without
-        readback) or None while not ready."""
+        readback) or None while not ready. Without readback the frame is
+        rendered at pipeline_depth (complete only after a later frame or
+        renderer.drain(); renderer.last_aux is then an older frame's), with
+        readback at depth 0 (exact, its counts in last_aux)."""
         now = get_time_milliseconds()
         self.frame_time_ma.add(now - self._frame_prev)
         self._frame_prev = now
@@ -352,6 +359,7 @@ class Engine:
             self.cur_sort, self.camera, self.scene_params, self.render_config,
             render_gs=self.render_gs, use_skybox=self.use_skybox,
             use_proxy=self.use_proxy, staged=self._staged, as_numpy=readback,
+            pipeline_depth=0 if readback else self.pipeline_depth,
         )
         self.last_image = img
         return img
@@ -370,7 +378,9 @@ class Engine:
                       max_frames: int = 100000):
         """Fly-path benchmark (gui.rs:955-997): clears all MAs, replays the
         path in real time, returns mean/std of frame/sort/build time, the
-        trigger rates and the windowed frame-time statistics."""
+        trigger rates, the windowed frame-time statistics and the run's
+        frames that overflowed a pair budget (overflow_frames, which
+        bench.py reports)."""
         for ma in (
             self.frame_time_ma, self.sort_time_ma, self.build_time_ma,
             self.sort_trigger_ma, self.build_trigger_ma,
@@ -380,6 +390,7 @@ class Engine:
         self.camera_control = "flypath"
         fly_path.reset_path()
         fly_path.start_path()
+        overflow0 = self.renderer.overflow_frames
         frames = 0
         stamps = [get_time_milliseconds()]
         t0 = stamps[0]
@@ -427,6 +438,7 @@ class Engine:
             build_ms=(b_avg, b_std),
             sort_trigger=sort_trigger,
             build_trigger=build_trigger,
+            overflow_frames=self.renderer.overflow_frames - overflow0,
             # the share of the frame budget the builder thread's work would
             # take if it were serialized: < 1 means sorting fully overlaps
             builder_load=(
@@ -457,13 +469,18 @@ class Engine:
 
     @staticmethod
     def format_benchmark(r) -> str:
-        """LaTeX-style dump like the reference (gui.rs:980-997)."""
-        return (
+        """LaTeX-style dump like the reference (gui.rs:980-997), and on a
+        line of its own the frames that overflowed a pair budget when the
+        result counts them."""
+        text = (
             "Render & Sort & Update\\\\\n"
             f"${r['frame_ms'][0]:.2f} \\pm {r['frame_ms'][1]:.2f}$ & "
             f"${r['sort_ms'][0]:.2f} \\pm {r['sort_ms'][1]:.2f}$ & "
             f"${r['build_ms'][0]:.2f} \\pm {r['build_ms'][1]:.2f}$"
         )
+        if "overflow_frames" in r:
+            text += f"\noverflow_frames {r['overflow_frames']}"
+        return text
 
     # ------------------------------------------------------------------ #
     def save_checkpoint(self, path):

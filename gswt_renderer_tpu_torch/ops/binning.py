@@ -6,11 +6,14 @@ package, each splat lands in every (tile_h x tile_w) pixel block its bbox
 overlaps, and within a tile splats keep front-to-back stream order so
 ordered alpha blending is exact.
 
-Every domain is sized exactly from the frame's own counts: one host sync
-reads the pair total, the pairs are enumerated splat-major (so within a
-tile they ascend in stream slot), the exact ellipse-tile cull moves pairs
-that cannot reach the cutoff to the dead key `n_tiles`, and one stable sort
-by tile yields each tile's run in the joint (tile, slot) order.
+The pairs are enumerated splat-major into a capacity the caller gives (so
+within a tile they ascend in stream slot, and a frame whose demand exceeds
+the capacity keeps its front-most pairs, as the JAX package's budget does),
+with no read of the demand on the host: the true demand and an overflow
+flag come back as 0-d device tensors. Pairs past the demand, and those the
+exact ellipse-tile cull finds cannot reach the cutoff, take the dead key
+`n_tiles`; one stable sort by tile yields each tile's run in the joint
+(tile, slot) order, the dead pairs after every run.
 """
 
 from __future__ import annotations
@@ -38,34 +41,47 @@ def grid_dims(image_wh, tile_wh):
     return ntx, nty, n_tiles
 
 
-def _expand(x0, y0, nx, count, *, ntx, section):
-    """Enumerate the pairs of inclusive tile bboxes, primitive-major:
-    pair k of primitive i covers tile (x0 + k % nx, y0 + k // nx).
-    Returns (prim [total] i64, tile [total] i64). One host sync, the read
-    of the total, timed as the host-profiler section `section`."""
-    with _hprof(section):
-        total = int(count.sum())
-    prim = torch.repeat_interleave(
-        torch.arange(count.shape[0], device=count.device), count,
-        output_size=total)
-    offs = torch.cumsum(count, 0) - count
-    k = torch.arange(total, device=count.device) - offs[prim]
-    nxp = nx[prim]
+def fit_capacity(demand, chunk: int) -> int:
+    """The capacity of `demand` pairs: rounded up to a whole chunk, at
+    least one chunk (a host int; `demand` may be a 0-d tensor, whose read
+    waits for the device)."""
+    return max(-(-int(demand) // chunk), 1) * chunk
+
+
+def _expand(x0, y0, nx, count, *, ntx, n_tiles, capacity):
+    """Enumerate the pairs of inclusive tile bboxes, primitive-major, into
+    `capacity` slots: pair k of primitive i covers tile (x0 + k % nx,
+    y0 + k // nx). Pair slot j finds its primitive by a search of the
+    inclusive cumsum of `count`; slots at or past the demand are dead and
+    take tile `n_tiles`. Returns (prim [capacity] i64, tile [capacity] i64,
+    total, overflow): the true demand and whether it exceeds the capacity,
+    0-d tensors. Needs at least one primitive (bin_pairs pads an empty
+    stream)."""
+    incl = torch.cumsum(count, 0)
+    total = incl[-1]
+    j = torch.arange(capacity, device=count.device)
+    prim = torch.clamp(torch.searchsorted(incl, j, right=True),
+                       max=count.shape[0] - 1)
+    k = j - (incl - count)[prim]
+    nxp = torch.clamp(nx[prim], min=1)
     tx = x0[prim] + k % nxp
     ty = y0[prim] + torch.div(k, nxp, rounding_mode="floor")
-    return prim, ty * ntx + tx
+    tile = torch.where(j < total, ty * ntx + tx, n_tiles)
+    return prim, tile, total, total > j.shape[0]
 
 
-def expand_bboxes(x0, x1, y0, y1, ok, *, ntx):
+def expand_bboxes(x0, x1, y0, y1, ok, *, ntx, n_tiles, capacity):
     """Expand per-primitive tile bboxes (inclusive, pre-clipped to the grid)
-    into (tile, primitive) pairs, sorted by tile with original order kept
-    inside each tile. Returns (sorted_key, sorted_prim, total)."""
+    into (tile, primitive) pairs in `capacity` slots (_expand), sorted by
+    tile with original order kept inside each tile and the dead slots
+    last. Returns (sorted_key, sorted_prim, total, overflow), as the JAX
+    package's expand_bboxes."""
     nx = torch.where(ok, x1 - x0 + 1, 0)
     ny = torch.where(ok, y1 - y0 + 1, 0)
-    prim, tile = _expand(x0, y0, nx, nx * ny, ntx=ntx,
-                         section="sync.expand_bboxes")
+    prim, tile, total, overflow = _expand(
+        x0, y0, nx, nx * ny, ntx=ntx, n_tiles=n_tiles, capacity=capacity)
     sorted_key, order = torch.sort(tile, stable=True)
-    return sorted_key, prim[order], prim.shape[0]
+    return sorted_key, prim[order], total, overflow
 
 
 def tile_ranges(sorted_key, n_tiles):
@@ -271,11 +287,27 @@ def _sat_cullable(sat_simg, cy, ey, x0, x1, *, nty, th):
     return small & (slot >= _zmax_lookup(x0, row, sdil))
 
 
+def _pad_empty(p):
+    """An empty stream as one invalid lane, so the pair gathers stay
+    defined."""
+    def pad(v):
+        if isinstance(v, tuple):
+            return tuple(pad(x) for x in v)
+        return torch.cat([v, v.new_zeros((1,) + tuple(v.shape[1:]))])
+    return {k: pad(v) for k, v in p.items()}
+
+
 def bin_pairs(p, *, image_wh, tile_wh, chunk: int, exact: bool = True,
               cull_exact: bool = True, occ_zimg=None, sat_simg=None,
-              emit_block_demand: bool = False):
+              emit_block_demand: bool = False, capacity: int):
     """p: projection outputs (front-to-back order, S lanes; the lane index
     is the stream slot).
+
+    capacity: the pair slots (a multiple of `chunk`). The bbox pairs are
+    enumerated splat-major into them (_expand) with no wait for the device:
+    a frame whose demand exceeds them keeps its front-most pairs and flags
+    `overflow`. A caller that wants the table of the demand itself reads
+    n_pairs of a first call and calls again with fit_capacity(n_pairs).
 
     exact=False is the fast profile (PARITY.md #8): the table carries the
     quantized values of quantize_payload and quantize_z, and every cull
@@ -308,16 +340,20 @@ def bin_pairs(p, *, image_wh, tile_wh, chunk: int, exact: bool = True,
     Returns dict:
       table — [16, dom] f32 rows k0..k5 (recentered to each pair's tile
         origin, build_pair_table), z, 0, r, g, b, ln a, slot, 0 x3; dom is
-        the pair count rounded up to a multiple of `chunk` (at least one
-        chunk), the tail and the culled pairs dead (k5 = -1e30, ln a = -inf)
+        the capacity, the slots past the demand and the culled pairs dead
+        (k5 = -1e30, ln a = -inf)
       range_start/range_end [n_tiles] i32 — each tile's run of the table
-      n_pairs — bbox pair demand (int), n_pairs_kept — pairs in tile runs
-        after the culls (0-d tensor), n_live — visible splats (0-d tensor)
+      n_pairs — bbox pair demand, overflow — n_pairs > dom, n_pairs_kept —
+        pairs in tile runs after the culls, n_live — visible splats (0-d
+        tensors)
       block_demand — with emit_block_demand only (see above)
     """
     w_img, h_img = image_wh
     tw, th = tile_wh
     ntx, nty, n_tiles = grid_dims(image_wh, tile_wh)
+    s_n = p["cx"].shape[0]
+    if s_n == 0:
+        p = _pad_empty(p)
 
     cx, cy = p["cx"], p["cy"]
     ex, ey = p["ext_x"], p["ext_y"]
@@ -346,12 +382,12 @@ def bin_pairs(p, *, image_wh, tile_wh, chunk: int, exact: bool = True,
     nx = torch.where(ok, x1 - x0 + 1, 0)
     ny = torch.where(ok, y1 - y0 + 1, 0)
     count0 = nx * ny
-    prim, tiles = _expand(x0, y0, nx, count0, ntx=ntx,
-                          section="sync.bin_pairs")
-    n_pairs = prim.shape[0]
+    prim, tiles, n_pairs, overflow = _expand(
+        x0, y0, nx, count0, ntx=ntx, n_tiles=n_tiles, capacity=capacity)
 
     if occ_zimg is not None:
-        occluded = z[prim] >= occ_zimg.reshape(-1)[tiles]
+        occluded = z[prim] >= occ_zimg.reshape(-1)[
+            torch.clamp(tiles, max=n_tiles - 1)]
         tiles = torch.where(occluded, n_tiles, tiles)
     if cull_exact:
         tiles = _cull_pair_tiles(
@@ -360,14 +396,7 @@ def bin_pairs(p, *, image_wh, tile_wh, chunk: int, exact: bool = True,
     # primitive-major enumeration + stable sort = joint (tile, slot) order
     tile_of, order = torch.sort(tiles, stable=True)
     src = prim[order]
-
-    dom = max(-(-n_pairs // chunk), 1) * chunk
-    pad = dom - n_pairs
-    if pad:
-        tile_of = torch.cat([tile_of, tile_of.new_full((pad,), n_tiles)])
-        src = torch.cat([src, src.new_zeros(pad)])
-    rows = torch.stack([cx, cy, qa, qb, qc, z, cr, cg, cb, ca])
-    rows = torch.cat([rows[:, src[:n_pairs]], rows.new_zeros((10, pad))], 1)
+    rows = torch.stack([cx, cy, qa, qb, qc, z, cr, cg, cb, ca])[:, src]
     dead = tile_of >= n_tiles
     cxg, cyg, qag, qbg, qcg, zg, rg, gg, bg, ag = rows
     table = build_pair_table(
@@ -381,12 +410,12 @@ def bin_pairs(p, *, image_wh, tile_wh, chunk: int, exact: bool = True,
         range_start=range_start,
         range_end=range_end,
         n_pairs=n_pairs,
+        overflow=overflow,
         n_pairs_kept=(range_end - range_start).sum(),
         n_live=ok.sum(),
     )
     if emit_block_demand:
-        s_n = count0.shape[0]
         pad = -s_n % 256
         out["block_demand"] = torch.cat(
-            [count0, count0.new_zeros(pad)]).reshape(-1, 256).sum(1)
+            [count0[:s_n], count0.new_zeros(pad)]).reshape(-1, 256).sum(1)
     return out

@@ -29,7 +29,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.hostprof import _hprof
 from .project import _bilinear_wrap4
 from .skybox import pixel_rays
 from .texsample import factored_mip_trilinear
@@ -78,15 +77,15 @@ def atlas_words(atlas):
         np.ascontiguousarray(atlas, np.float32).view(np.int32).copy())
 
 
-def _select_level(meta, lvl_i):
-    """Per-pixel (w, h, off) of mip level lvl_i."""
-    with _hprof("sync.mip_levels"):  # a copy from pageable host memory
-        tab = torch.tensor(meta, dtype=torch.int64, device=lvl_i.device)
-    return tab[lvl_i].unbind(-1)
+def mip_table(meta, device):
+    """The mip levels' (w, h, off) as an [L, 3] int64 tensor on `device`:
+    made once per texture (Renderer.set_proxy), since a copy of it from
+    host memory in the frame would wait for the device."""
+    return torch.tensor(meta, dtype=torch.int64, device=device)
 
 
-def _sample_level_rgb(atlas, meta, u, v, lvl_i):
-    w, h, off = _select_level(meta, lvl_i)
+def _sample_level_rgb(atlas, tab, u, v, lvl_i):
+    w, h, off = tab[lvl_i].unbind(-1)
     wf = w.to(torch.float32)
     hf = h.to(torch.float32)
     x = u * wf - 0.5
@@ -114,18 +113,19 @@ def _sample_level_rgb(atlas, meta, u, v, lvl_i):
     )
 
 
-def sample_mip_trilinear(atlas, meta, u, v, rho):
+def sample_mip_trilinear(atlas, tab, u, v, rho):
     """Trilinear Repeat sampling of the mip atlas (int32 words, see
-    atlas_words). rho: footprint in level-0 texels per pixel."""
-    n_lv = len(meta)
+    atlas_words). tab: the levels' (w, h, off) as mip_table made it on the
+    atlas's device. rho: footprint in level-0 texels per pixel."""
+    n_lv = tab.shape[0]
     lvl = torch.clamp(
         torch.log2(torch.clamp(rho, min=1e-6)), 0.0, float(n_lv - 1)
     )
     l0 = torch.floor(lvl).long()
     frac = (lvl - l0.to(torch.float32))[..., None]
-    c0 = _sample_level_rgb(atlas, meta, u, v, l0)
+    c0 = _sample_level_rgb(atlas, tab, u, v, l0)
     c1 = _sample_level_rgb(
-        atlas, meta, u, v, torch.clamp(l0 + 1, max=n_lv - 1)
+        atlas, tab, u, v, torch.clamp(l0 + 1, max=n_lv - 1)
     )
     return c0 * (1.0 - frac) + c1 * frac
 
@@ -279,14 +279,16 @@ def map_grid_planes(cam, scene, image_wh, hm4, hm_wh, verts, tris,
 
 def raster_map_grid(cam, scene, image_wh, hm4, hm_wh, verts, tris,
                     *, surface_type: int, height_offset: float,
-                    tile_wh, chunk: int):
-    """Rasterize the displaced tile-map grid. Returns (z [H,W] wgpu depth,
-    u, v, mapped_h [H,W], hit [H,W], n_pairs)."""
+                    tile_wh, chunk: int, capacity: int):
+    """Rasterize the displaced tile-map grid into `capacity` pair slots
+    (ops/trirast.py rasterize_triangles). Returns (z [H,W] wgpu depth,
+    u, v, mapped_h [H,W], hit [H,W], n_pairs, overflow)."""
     planes, ok, bbox = map_grid_planes(
         cam, scene, image_wh, hm4, hm_wh, verts, tris,
         surface_type=surface_type, height_offset=height_offset)
     rast = rasterize_triangles(
         planes, bbox, ok, image_wh=image_wh, tile_wh=tile_wh, chunk=chunk,
+        capacity=capacity,
     )
     z, at = tiles_to_maps(rast["tiles"], image_wh=image_wh, tile_wh=tile_wh)
     invw = at[0]
@@ -295,7 +297,7 @@ def raster_map_grid(cam, scene, image_wh, hm4, hm_wh, verts, tris,
     u_px = at[1] / invw_s
     v_px = at[2] / invw_s
     mh_px = at[3] / invw_s
-    return z, u_px, v_px, mh_px, hit, rast["n_pairs"]
+    return z, u_px, v_px, mh_px, hit, rast["n_pairs"], rast["overflow"]
 
 
 # ------------------------------------------------------------------ #
@@ -378,11 +380,15 @@ def render_proxy(
     black_background: bool, use_clip: bool, clip_height: float,
     mip_meta=None, mip_pyr=None, tile_wh=(64, 32), chunk: int = 128,
     use_grid: bool = True, n_steps: int = 96, max_dist: float = 2400.0,
+    proxy_pairs: int,
 ):
-    """Hybrid proxy pass. proxy: dict(atlas [4, total] int32 words, verts
-    [2, Nv], tris [3, T], optional pyr: the packed rgb pyramid as
+    """Hybrid proxy pass. proxy: dict(atlas [4, total] int32 words, mip_tab:
+    the levels' (w, h, off) as mip_table made it on the atlas's device,
+    verts [2, Nv], tris [3, T], optional pyr: the packed rgb pyramid as
     texsample.sampler_pyramid lays it out on its device) with mip_meta the
-    per-level (w, h, off) tuple. When mip_pyr (the (meta, l_min) from
+    per-level (w, h, off) tuple. proxy_pairs: the grid raster's pair slots
+    (ops/trirast.py rasterize_triangles); aux holds proxy_pairs, the
+    demand, and proxy_overflow. When mip_pyr (the (meta, l_min) from
     texsample.pack_pyramid) is given and proxy carries the packed pyramid
     planes, mip sampling goes through the pyramid kernel (fast profile;
     levels finer than l_min clamp -- documented in PARITY.md); otherwise
@@ -391,19 +397,20 @@ def render_proxy(
     w_img, h_img = image_wh
     if use_grid:
         # map grid + far clipmap rings rasterized together
-        z, u, v, mh, hit, npx = raster_map_grid(
+        z, u, v, mh, hit, npx, ovf = raster_map_grid(
             cam, scene, image_wh, hm4, hm_wh, proxy["verts"], proxy["tris"],
             surface_type=surface_type, height_offset=height_offset,
-            tile_wh=tile_wh, chunk=chunk,
+            tile_wh=tile_wh, chunk=chunk, capacity=proxy_pairs,
         )
-        aux = dict(proxy_pairs=npx)
+        aux = dict(proxy_pairs=npx, proxy_overflow=ovf)
     else:
         z, u, v, mh, hit = march_height_field(
             cam, scene, image_wh, hm4, hm_wh,
             surface_type=surface_type, height_offset=height_offset,
             n_steps=n_steps, max_dist=max_dist,
         )
-        aux = dict(proxy_pairs=0)
+        zero = torch.zeros((), dtype=torch.int64, device=z.device)
+        aux = dict(proxy_pairs=zero, proxy_overflow=zero > 0)
 
     # fragment clip discard (proxy.wgsl:100-102)
     if use_clip:
@@ -422,7 +429,8 @@ def render_proxy(
                 proxy["pyr"], pyr_meta, l_min, u, v, rho, n_ch=3,
             ).permute(1, 2, 0)
         else:
-            rgb = sample_mip_trilinear(proxy["atlas"], meta, u, v, rho)
+            rgb = sample_mip_trilinear(proxy["atlas"], proxy["mip_tab"], u,
+                                       v, rho)
         rgb = rgb * brightness
     color = torch.cat(
         [rgb, torch.ones((h_img, w_img, 1), dtype=torch.float32,

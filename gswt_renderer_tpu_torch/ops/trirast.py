@@ -453,12 +453,14 @@ def rasterize_pair_rows(rows, range_start, range_end, *, image_wh, tile_wh,
     return out
 
 
-def bin_triangles(planes, bbox, ok, *, image_wh, tile_wh,
+def bin_triangles(planes, bbox, ok, *, image_wh, tile_wh, capacity: int,
                   return_index: bool = False):
-    """Expand triangles into (tile, triangle) pairs sorted by tile (triangle
-    order kept inside a tile). Returns (rows [24, n_pairs], range_start,
-    range_end [n_tiles] i32, n_pairs), and with return_index also the
-    pairs' (tile, triangle) indices [n_pairs] i64."""
+    """Expand triangles into (tile, triangle) pairs in `capacity` slots
+    (ops/binning.py expand_bboxes: triangle-major, so an overflowing frame
+    keeps its first triangles' pairs), sorted by tile (triangle order kept
+    inside a tile, the dead slots last). Returns (rows [24, capacity], range_start,
+    range_end [n_tiles] i32, n_pairs: the demand, a 0-d tensor), and with
+    return_index also the slots' (tile, triangle) indices [capacity] i64."""
     w_img, h_img = image_wh
     tw, th = tile_wh
     ntx, nty, n_tiles = grid_dims(image_wh, tile_wh)
@@ -470,8 +472,9 @@ def bin_triangles(planes, bbox, ok, *, image_wh, tile_wh,
     y0 = torch.clamp(torch.floor(by0 / th), 0, nty - 1).long()
     y1 = torch.clamp(torch.floor(by1 / th), 0, nty - 1).long()
     onscreen = (bx1 >= 0) & (bx0 < w_img) & (by1 >= 0) & (by0 < h_img)
-    sorted_key, sorted_tri, total = expand_bboxes(
-        x0, x1, y0, y1, ok & onscreen, ntx=ntx)
+    sorted_key, sorted_tri, total, _ = expand_bboxes(
+        x0, x1, y0, y1, ok & onscreen, ntx=ntx, n_tiles=n_tiles,
+        capacity=capacity)
     rows = planes[:, sorted_tri].contiguous()  # [24, n_pairs]
     range_start, range_end = tile_ranges(sorted_key, n_tiles)
     if return_index:
@@ -480,18 +483,21 @@ def bin_triangles(planes, bbox, ok, *, image_wh, tile_wh,
 
 
 def rasterize_triangles(planes, bbox, ok, *, image_wh, tile_wh,
-                        chunk: int = 128):
-    """Rasterize triangles with min-z. planes/bbox/ok from triangle_planes.
+                        chunk: int = 128, capacity: int):
+    """Rasterize triangles with min-z. planes/bbox/ok from triangle_planes;
+    capacity: the pair slots (bin_triangles).
 
     Returns dict: tiles [n_tiles, 5, P] (rows: z, 1/w, u/w, v/w, extra/w),
-    n_pairs (int). Reassemble per-pixel images with tiles_to_maps.
+    n_pairs (the demand) and overflow (n_pairs > capacity), 0-d tensors.
+    Reassemble per-pixel images with tiles_to_maps.
     """
     rows, range_start, range_end, total = bin_triangles(
-        planes, bbox, ok, image_wh=image_wh, tile_wh=tile_wh)
+        planes, bbox, ok, image_wh=image_wh, tile_wh=tile_wh,
+        capacity=capacity)
     tiles = rasterize_pair_rows(rows, range_start, range_end,
                                 image_wh=image_wh, tile_wh=tile_wh,
                                 chunk=chunk)
-    return dict(tiles=tiles, n_pairs=total)
+    return dict(tiles=tiles, n_pairs=total, overflow=total > rows.shape[1])
 
 
 def tiles_to_maps(tiles, *, image_wh, tile_wh):

@@ -25,7 +25,10 @@ segments in turn on one device, with the same cut, feedback and fold and no
 collective.
 
 Every rank runs the port's kernels on its own device: NCCL on "cuda", gloo
-on the CPU (device="cpu" renderers).
+on the CPU (device="cpu" renderers). Both modes render at depth 0: each
+camera's, background's and segment's counts are read at its end, and one
+that overflowed a pair budget is rendered again with the grown budget
+(Renderer.exactly), so every image is exact.
 """
 
 from __future__ import annotations
@@ -147,11 +150,14 @@ def render_cameras_sharded(renderer, staged, scene_params, cam_batch, mesh,
     per = b // n_dp
     imgs = []
     for k in range(i_dp * per, (i_dp + 1) * per):
-        binned, bg, depth_tiles, _ = renderer.front_packed(
-            plan, cam_batch[k], scene_params, rc, use_skybox=use_skybox,
-            use_proxy=use_proxy)
-        imgs.append(renderer.back(binned, bg, depth_tiles,
-                                  use_proxy=use_proxy))
+        def attempt(k=k):
+            binned, bg, depth_tiles, aux = renderer.front_packed(
+                plan, cam_batch[k], scene_params, rc, use_skybox=use_skybox,
+                use_proxy=use_proxy)
+            return renderer.back(binned, bg, depth_tiles,
+                                 use_proxy=use_proxy), aux
+
+        imgs.append(renderer.exactly(attempt))
     local = torch.stack(imgs)
     out = [torch.empty_like(local) for _ in range(n_dp)]
     dist.all_gather(out, local, group=group)
@@ -233,9 +239,14 @@ def _frame_setup(renderer, staged, scene_params, camera, rc, use_skybox,
     unpacked uniforms, the background and the proxy depth."""
     use_skybox, use_proxy = _layers(renderer, use_skybox, use_proxy)
     unpacked = renderer.frame_uniforms(camera, scene_params, rc)
-    bg, depth_tiles, _ = renderer.background(
-        unpacked, scene_params, rc, use_skybox=use_skybox,
-        use_proxy=use_proxy)
+
+    def attempt():
+        bg, depth_tiles, aux = renderer.background(
+            unpacked, scene_params, rc, use_skybox=use_skybox,
+            use_proxy=use_proxy)
+        return (bg, depth_tiles), aux
+
+    bg, depth_tiles = renderer.exactly(attempt)
     return dict(plan=renderer.upload_plan(staged),
                 blocks_host=staged["blocks"], unpacked=unpacked, bg=bg,
                 depth_tiles=depth_tiles, use_proxy=use_proxy, scene=scene_params,
@@ -251,12 +262,17 @@ def render_segment(renderer, frame, entries):
         segment_blocks(frame["blocks_host"], entries)).to(renderer.device))
     p = renderer._project(plan, frame["unpacked"], frame["scene"],
                           frame["rc"])
-    binned, aux = renderer.bin_pairs(p, frame["depth_tiles"],
-                                     use_proxy=frame["use_proxy"],
-                                     emit_block_demand=True)
-    img = renderer.back(binned, torch.zeros_like(frame["bg"]),
-                        frame["depth_tiles"], use_proxy=frame["use_proxy"])
-    return img, aux["n_pairs_kept"], aux["block_demand"]
+
+    def attempt():
+        binned, aux = renderer.bin_pairs(p, frame["depth_tiles"],
+                                         use_proxy=frame["use_proxy"],
+                                         emit_block_demand=True,
+                                         budget=renderer.segment_budget)
+        img = renderer.back(binned, torch.zeros_like(frame["bg"]),
+                            frame["depth_tiles"], use_proxy=frame["use_proxy"])
+        return (img, aux["n_pairs_kept"], aux["block_demand"]), aux
+
+    return renderer.exactly(attempt, renderer.segment_budget)
 
 
 def _fold(imgs, bg):

@@ -17,8 +17,16 @@ panel ids + per-draw bits, `stage_vp`) and assembled on the device. The plan
 stays numpy until the render thread uploads it, so the builder thread never
 touches a CUDA stream.
 
-Every domain is sized exactly from the frame's own counts; the image equals
-what the JAX package renders once its buckets have converged.
+No frame waits for the device between its first and its last launch. The
+pair expansions fill capacities fixed on the host before the frame starts
+(PairBudget: the largest demand seen times PAIR_HEADROOM), the uniforms and
+the plan go up from pinned host memory with non-blocking copies, and the
+frame's counts come back through a pinned buffer behind an event.
+render(pipeline_depth=0) reads them at the frame's end and renders the frame
+again if it overflowed a budget, so every frame read back is exact and
+equals what the JAX package renders once its buckets have converged;
+pipeline_depth > 0 keeps that many frames in flight and completes the
+oldest (drain), as the JAX package's Renderer.render does.
 
 Two profiles, as in the JAX package. The default fast profile
 (RendererConfig.exact=False, PARITY.md #8) quantizes what the compositor
@@ -36,6 +44,8 @@ unless set_host_prof(True)).
 
 from __future__ import annotations
 
+import contextlib
+import math
 import sys
 from dataclasses import dataclass
 
@@ -53,7 +63,8 @@ from ..ops import binning, project, raster
 from ..ops.raster import SAT_BANDS, SAT_NOCUT
 from ..ops.kernels import resolve_device
 from ..ops.project import GS_BITS, pack_tex4
-from ..ops.proxy import atlas_words, make_map_grid, pack_mip_atlas, render_proxy
+from ..ops.proxy import (atlas_words, make_map_grid, mip_table,
+                         pack_mip_atlas, render_proxy)
 from ..ops.skybox import bake_hdri_to_cubemap, render_skybox
 from ..ops.texsample import pack_pyramid, sampler_pyramid
 from ..tiles.structures import DrawTable
@@ -61,6 +72,47 @@ from .uniforms import SceneParams
 
 STREAM_BLOCK = 256  # stream panel width (ops/blockgather.py BLOCK)
 PANEL_ROWS = 16     # pos xyz, cov 6, rgba u32, packed gs|lod, map id, 4 pad
+
+# The two pair budgets (splat pairs, proxy-triangle pairs), PairBudget: a
+# frame's capacity is the largest demand seen times PAIR_HEADROOM, so a
+# camera that moves into half as many pairs again as any frame before it
+# still fits (the JAX package grows its pair bucket with the same 1.5x; a
+# pipelined frame sizes its capacity from the frames completed before it,
+# pipeline_depth frames late); before any demand is seen, the stream's
+# lanes times SEED_PAIRS_PER_LANE (a bbox pair per lane is about what the
+# bench fly-through bins) or the proxy grid's triangles times
+# SEED_PAIRS_PER_TRIANGLE (most triangles lie off screen).
+PAIR_HEADROOM = 1.5
+SEED_PAIRS_PER_LANE = 2.0
+SEED_PAIRS_PER_TRIANGLE = 2.0
+# the proxy raster's pair chunk (ops/trirast.py)
+PROXY_CHUNK = 128
+# the frame counts a frame reads back (its aux), in the order of the host
+# vector
+AUX_KEYS = ("n_pairs", "n_pairs_kept", "n_live", "overflow", "proxy_pairs",
+            "proxy_overflow")
+# a byte offset every array of an uploaded plan starts at a multiple of
+_PLAN_ALIGN = 256
+
+
+class PairBudget:
+    """A grow-only pair budget: the capacity a pair expansion fills, fixed
+    on the host before the frame is launched. Not keyed by shape and not
+    rounded to powers of two: capacity = the largest demand absorbed times
+    PAIR_HEADROOM, or `units * seed_per_unit` before any demand, rounded up
+    to a whole chunk."""
+
+    def __init__(self, seed_per_unit: float):
+        self.seed_per_unit = seed_per_unit
+        self.demand = 0  # the largest demand seen
+
+    def capacity(self, units: int, chunk: int) -> int:
+        want = (self.demand * PAIR_HEADROOM if self.demand
+                else units * self.seed_per_unit)
+        return binning.fit_capacity(math.ceil(want), chunk)
+
+    def absorb(self, demand: int):
+        self.demand = max(self.demand, int(demand))
 
 
 @dataclass
@@ -258,6 +310,8 @@ class Renderer:
         self.skybox_equirect = True
         self.proxy_tex = None
         self.proxy_mip_meta = ((1, 1, 0),)
+        # the exact profile's mip level table on the device (mip_table)
+        self.proxy_mip_tab = mip_table(self.proxy_mip_meta, self.device)
         self.proxy_wh = (1, 1)
         # the packed pyramid in its device's sampler layout (sampler_pyramid)
         self.proxy_pyr = None
@@ -266,10 +320,29 @@ class Renderer:
                                        device=self.device)
         self.proxy_tris = torch.zeros((3, 2), dtype=torch.int32,
                                       device=self.device)
+        # last_aux: the counts of the last frame completed (host ints and
+        # bools, AUX_KEYS); overflow_frames: pipelined frames that overflowed
+        # a budget (rendered short, the budget grown for later frames);
+        # last_overflow_retries: depth-0 re-renders of the last frame
         self.last_aux = None
+        self.overflow_frames = 0
+        self.last_overflow_retries = 0
+        self.pair_budget = PairBudget(SEED_PAIRS_PER_LANE)
+        self.proxy_budget = PairBudget(SEED_PAIRS_PER_TRIANGLE)
+        # the splat pairs of one stream segment (parallel/batched.py
+        # render_segment): a segment holds a share of the frame's demand,
+        # so it grows from the segments' demands, not the frame's
+        self.segment_budget = PairBudget(SEED_PAIRS_PER_LANE)
         self.last_stream_truncated = 0
         self._plan_host = None
         self._plan_dev = None
+        # pinned staging buffers of plan uploads with their copies' events
+        self._staging = []
+        # the uniforms' ring of pinned host buffers: [buffer, event] slots
+        self._uni_ring = []
+        self._uni_next = 0
+        # frames in flight, oldest first: (aux keys, pinned aux, end event)
+        self._inflight = []
 
     def set_state(self, state: dict):
         """Install resident state (see state_from_numpy)."""
@@ -277,6 +350,8 @@ class Renderer:
             if k not in _STATE_KEYS:
                 raise KeyError(f"unknown renderer state {k!r}")
             setattr(self, k, v)
+        if "proxy_mip_meta" in state:
+            self.proxy_mip_tab = mip_table(self.proxy_mip_meta, self.device)
 
     # ------------------------------------------------------------------ #
     def configure(self, user_data):
@@ -343,6 +418,7 @@ class Renderer:
         atlas, meta = pack_mip_atlas(mips)
         self.proxy_tex = atlas_words(atlas).to(self.device)
         self.proxy_mip_meta = meta
+        self.proxy_mip_tab = mip_table(meta, self.device)
         self.proxy_wh = (meta[0][0], meta[0][1])
         pyr, pyr_meta, l_min = pack_pyramid(mips)
         self.proxy_pyr = sampler_pyramid(
@@ -604,42 +680,80 @@ class Renderer:
         return dict(blocks=blocks, merged=merged, draw=draw)
 
     def upload_plan(self, staged):
-        """The staged plan on the device; uploaded once per staged plan.
-        Each copy from pageable host memory waits for the device."""
-        if staged is not self._plan_host:
-            dev = self.device
-
-            def up(a):
-                return torch.as_tensor(a).to(dev)
-
-            d = staged["draw"]
-            with _hprof("sync.upload_plan"):
-                self._plan_dev = dict(
-                    blocks=up(staged["blocks"]),
-                    merged=up(staged["merged"]),
-                    draw=dict(
-                        n_draws=d["n_draws"],
-                        single_draw=up(d["single_draw"]),
-                        tile_lod=up(d["tile_lod"]),
-                        has_corners=up(d["has_corners"]),
-                        corner_pos=up(d["corner_pos"]),
-                    ),
-                )
-            self._plan_host = staged
+        """The staged plan on the device; uploaded once per staged plan. On
+        the card its arrays go up in one non-blocking copy from a pinned
+        staging buffer, kept until the copy's event has completed, and are
+        carved into views (each 256-B aligned) on the device."""
+        if staged is self._plan_host:
+            return self._plan_dev
+        d = staged["draw"]
+        parts = [np.ascontiguousarray(a, np.int32) for a in (
+            staged["blocks"], staged["merged"], d["single_draw"],
+            d["tile_lod"], d["has_corners"])]
+        parts.append(np.ascontiguousarray(d["corner_pos"], np.float32)
+                     .view(np.int32))
+        with _hprof("render.plan"):
+            if self.device.type == "cuda":
+                step = _PLAN_ALIGN // 4
+                offs = np.cumsum([0] + [-(-a.size // step) * step
+                                        for a in parts])
+                host = torch.empty(int(offs[-1]), dtype=torch.int32,
+                                   pin_memory=True)
+                hn = host.numpy()
+                for a, o in zip(parts, offs):
+                    hn[o:o + a.size] = a.reshape(-1)
+                dev = host.to(self.device, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
+                self._staging = [(h, e) for h, e in self._staging
+                                 if not e.query()] + [(host, done)]
+                arrs = [dev[o:o + a.size].view(a.shape)
+                        for a, o in zip(parts, offs)]
+            else:
+                arrs = [torch.from_numpy(a) for a in parts]
+        blocks, merged, single_draw, tile_lod, has_corners, corner = arrs
+        self._plan_dev = dict(
+            blocks=blocks, merged=merged,
+            draw=dict(n_draws=d["n_draws"], single_draw=single_draw,
+                      tile_lod=tile_lod, has_corners=has_corners,
+                      corner_pos=corner.view(torch.float32)),
+        )
+        self._plan_host = staged
         return self._plan_dev
 
     # ------------------------------------------------------------------ #
     def pack_uniforms(self, camera: Camera, scene: SceneParams,
                       rc: RenderConfig, render_gs: bool = True):
-        """One frame's packed uniforms [UNIFORMS_LEN] f32 on the device (one
-        small upload per frame, which waits for the device: a copy from
-        pageable host memory)."""
+        """One frame's packed uniforms [UNIFORMS_LEN] f32 on the device. On
+        the card they go up with a non-blocking copy from a ring of pinned
+        host buffers; a slot is written again only once the copy that last
+        read it has completed (its event), which render's ring of
+        pipeline_depth + 1 slots makes true before the slot comes round."""
         lod_enable = list(rc.lod_enable or [True] * 16)
-        v = torch.as_tensor(self.pack_frame_uniforms(
+        v = self.pack_frame_uniforms(
             scene, CameraUniforms(camera), lod_enable, rc.culling_dist,
-            render_gs=render_gs))
-        with _hprof("sync.uniforms"):
-            return v.to(self.device)
+            render_gs=render_gs)
+        if self.device.type != "cuda":
+            return torch.from_numpy(v)
+        if not self._uni_ring:
+            self._grow_ring(1)
+        slot = self._uni_ring[self._uni_next % len(self._uni_ring)]
+        self._uni_next += 1
+        if slot[1] is not None and not slot[1].query():
+            with _hprof("sync.uniform_slot"):
+                slot[1].synchronize()
+        slot[0].numpy()[:] = v
+        out = slot[0].to(self.device, non_blocking=True)
+        slot[1] = torch.cuda.Event()
+        slot[1].record(torch.cuda.current_stream(self.device))
+        return out
+
+    def _grow_ring(self, n: int):
+        """At least n slots in the uniforms' ring (the card only)."""
+        while len(self._uni_ring) < n:
+            self._uni_ring.append([torch.empty(
+                self.UNIFORMS_LEN, dtype=torch.float32, pin_memory=True),
+                None])
 
     def frame_uniforms(self, camera: Camera, scene: SceneParams,
                        rc: RenderConfig, render_gs: bool = True):
@@ -679,7 +793,7 @@ class Renderer:
             div = 1 if c.exact else 2
         p_wh = (-(-c.width // div), -(-c.height // div))
         prox = dict(atlas=self.proxy_tex, verts=self.proxy_verts,
-                    tris=self.proxy_tris)
+                    tris=self.proxy_tris, mip_tab=self.proxy_mip_tab)
         mip_pyr = None
         if not c.exact and self.proxy_pyr is not None:
             prox["pyr"] = self.proxy_pyr
@@ -692,7 +806,9 @@ class Renderer:
             black_background=bool(rc.proxy_black_background),
             use_clip=bool(rc.use_clip), clip_height=float(rc.clip_height),
             mip_meta=self.proxy_mip_meta, mip_pyr=mip_pyr,
-            tile_wh=(c.proxy_tile_w, c.proxy_tile_h), chunk=128,
+            tile_wh=(c.proxy_tile_w, c.proxy_tile_h), chunk=PROXY_CHUNK,
+            proxy_pairs=self.proxy_budget.capacity(
+                self.proxy_tris.shape[1], PROXY_CHUNK),
         )
         if div > 1:
             # depth/hit upsample NEAREST (bilinear would blend across
@@ -754,8 +870,9 @@ class Renderer:
         """The skybox and the proxy ground of one frame from its unpacked
         uniforms. Returns (bg [H,W,4], depth_tiles [T,P], aux): the
         background the compositor's output lies over and the depth it is
-        tested against (1.0 without the proxy); aux holds proxy_pairs when
-        the proxy was drawn."""
+        tested against (1.0 without the proxy); aux holds proxy_pairs (the
+        grid raster's pair demand) and proxy_overflow (beyond the proxy
+        budget), 0-d tensors, when the proxy was drawn."""
         c = self.cfg
         image_wh = (c.width, c.height)
         scene_d, cam_d = unpacked[0], unpacked[1]
@@ -772,7 +889,7 @@ class Renderer:
                 pcol, depth, hit, paux = self.proxy_pass(
                     cam_d, scene_d, scene, rc)
                 bg = torch.where(hit[..., None], pcol, bg)
-            aux["proxy_pairs"] = paux["proxy_pairs"]
+            aux.update(paux)
         else:
             depth = torch.ones((c.height, c.width), dtype=torch.float32,
                                device=self.device)
@@ -781,10 +898,12 @@ class Renderer:
         return bg, depth_tiles, aux
 
     def bin_pairs(self, p, depth_tiles, *, use_proxy: bool, sat_zimg=None,
-                  emit_block_demand: bool = False):
+                  emit_block_demand: bool = False, budget=None):
         """Binning of a projected stream (ops/binning.py bin_pairs) with the
-        configured culls. Returns (binned, aux): aux holds n_pairs,
-        n_pairs_kept and n_live, and block_demand with emit_block_demand."""
+        configured culls, into the capacity of `budget` (the splat pair
+        budget when None) for the stream's lanes. Returns (binned, aux): aux
+        holds n_pairs, overflow, n_pairs_kept and n_live (0-d tensors), and
+        block_demand with emit_block_demand."""
         c = self.cfg
         image_wh = (c.width, c.height)
         tile_wh = (c.tile_w, c.tile_h)
@@ -797,10 +916,11 @@ class Renderer:
                 p, image_wh=image_wh, tile_wh=tile_wh, chunk=c.chunk,
                 exact=c.exact, cull_exact=c.cull_exact, occ_zimg=occ_zimg,
                 sat_simg=sat_zimg, emit_block_demand=emit_block_demand,
+                capacity=(budget or self.pair_budget).capacity(
+                    p["cx"].shape[0], c.chunk),
             )
-        aux = dict(n_pairs=binned["n_pairs"],
-                   n_pairs_kept=binned["n_pairs_kept"],
-                   n_live=binned["n_live"])
+        aux = {k: binned[k] for k in ("n_pairs", "overflow", "n_pairs_kept",
+                                      "n_live")}
         if emit_block_demand:
             aux["block_demand"] = binned.pop("block_demand")
         return binned, aux
@@ -936,39 +1056,141 @@ class Renderer:
         return torch.full(shape, SAT_NOCUT, dtype=torch.float32,
                           device=self.device)
 
+    # ------------------------------------------------------------------ #
+    def post_aux(self, aux):
+        """Start a frame's counts on their way to the host, after its last
+        launch: the AUX_KEYS it has as one int64 vector, copied into a
+        pinned buffer with a non-blocking copy, an event behind it (the
+        frame's end). Returns the pending record for fetch_aux."""
+        keys = [k for k in AUX_KEYS if k in aux]
+        if not keys:
+            return keys, torch.zeros(0, dtype=torch.int64), None
+        with _hprof("render.aux"):
+            vec = torch.stack([aux[k].reshape(()).to(torch.int64)
+                               for k in keys])
+            if not vec.is_cuda:
+                return keys, vec, None
+            host = torch.empty(len(keys), dtype=torch.int64, pin_memory=True)
+            host.copy_(vec, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(vec.device))
+        return keys, host, done
+
+    def fetch_aux(self, pending, section: str | None = "sync.aux") -> dict:
+        """The counts of a pending record (post_aux) once its event has
+        completed (a wait, timed as `section` when one is named): host
+        ints, and bools for the overflow flags."""
+        keys, host, done = pending
+        with _hprof(section) if section else contextlib.nullcontext():
+            if done is not None:
+                done.synchronize()
+            vals = host.tolist()
+        return {k: bool(v) if k.endswith("overflow") else int(v)
+                for k, v in zip(keys, vals)}
+
+    def absorb(self, aux: dict, budget=None) -> bool:
+        """Grow the pair budgets from a frame's fetched counts (n_pairs into
+        `budget`, the splat pair budget when None); True when the frame
+        overflowed one of them (it was rendered short)."""
+        if "n_pairs" in aux:
+            (budget or self.pair_budget).absorb(aux["n_pairs"])
+        if "proxy_pairs" in aux:
+            self.proxy_budget.absorb(aux["proxy_pairs"])
+        return bool(aux.get("overflow") or aux.get("proxy_overflow"))
+
+    def exactly(self, attempt, budget=None):
+        """attempt() -> (result, aux) launched until its counts show no
+        overflow: the depth-0 policy, for render and for callers that drive
+        front(), background() and bin_pairs() themselves
+        (parallel/batched.py; `budget`: the splat pair budget their
+        bin_pairs was given). Each try's counts are read at its end (after
+        the frames in flight, complete by then); an overflow grows the
+        budgets from the true demand and launches again
+        (last_overflow_retries), which then fits."""
+        for _ in range(3):
+            out, aux = attempt()
+            pending = self.post_aux(aux)
+            if self._inflight:
+                self.drain()
+            self.last_aux = self.fetch_aux(pending)
+            if not self.absorb(self.last_aux, budget):
+                return out
+            self.last_overflow_retries += 1
+        raise RuntimeError(f"the pair budgets overflowed three times: "
+                           f"{self.last_aux}")
+
+    def _drain_one(self):
+        """Complete the oldest frame in flight: its counts become last_aux,
+        and an overflow grows the budgets for later frames (too late to
+        render this one again) and counts in overflow_frames."""
+        aux = self.fetch_aux(self._inflight.pop(0), None)
+        self.last_aux = aux
+        if self.absorb(aux):
+            self.overflow_frames += 1
+
     def drain(self):
-        """Block until the device has finished every frame enqueued so far
-        (a frame rendered without readback returns before it is done)."""
-        if self.device.type == "cuda":
-            with _hprof("render.drain"):
+        """Complete every frame in flight, then wait for whatever else was
+        launched on the device (a frame rendered without readback returns
+        before it is done)."""
+        with _hprof("render.drain"):
+            while self._inflight:
+                self._drain_one()
+            if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
 
     def render(self, dt: DrawTable, camera: Camera, scene: SceneParams,
                render_config: RenderConfig | None = None, *,
                render_gs: bool = True, use_skybox: bool = False,
                use_proxy: bool = False, as_numpy: bool = True,
-               staged=None):
+               staged=None, pipeline_depth: int = 0):
         """Render one frame; returns [H, W, 4] float32 (numpy, or a device
         tensor with as_numpy=False). The skybox and the proxy are drawn only
-        when asked for AND their texture is set. last_aux holds the frame's
-        counts: n_pairs (int), n_pairs_kept and n_live (0-d tensors), and
-        proxy_pairs (int) when the proxy was drawn. With sat_cull the frame
-        also leaves its saturation-slot image in sat_zimg for the next."""
+        when asked for AND their texture is set. With sat_cull the frame
+        also leaves its saturation-slot image in sat_zimg for the next.
+
+        pipeline_depth > 0 (with as_numpy=False) keeps up to that many
+        frames in flight and only blocks on the OLDEST one: the frame is
+        queued with its counts' pending copy and returns, and the frames
+        beyond the depth are completed (drain) — per-frame last_aux lands
+        pipeline_depth frames late, and a pair-budget overflow grows the
+        budget for later frames instead of rendering this one again
+        (`overflow_frames` counts those). At depth 0 the frame reads its
+        counts at its end (last_aux: n_pairs, n_pairs_kept, n_live,
+        overflow, and proxy_pairs and proxy_overflow when the proxy was
+        drawn) and an overflowed frame is rendered again with the grown
+        budgets (`last_overflow_retries`), so every frame read back is
+        exact. Either way no wait for the device falls between the frame's
+        first and last launch."""
         use_skybox = bool(use_skybox and self.skybox_tex is not None)
         use_proxy = bool(use_proxy and self.proxy_tex is not None)
         rc = render_config or RenderConfig.new(self.engine.n_tiles[0])
         if staged is None:
             staged = self.stage(dt, camera, rc.culling_dist)
+        if self.device.type == "cuda":
+            self._grow_ring(pipeline_depth + 1)
+        self.last_overflow_retries = 0
         sat_zin = self._sat_cut_in(camera, rc, render_gs)
-        binned, bg, depth_tiles, aux = self.front(
-            self.upload_plan(staged), camera, scene, rc, render_gs=render_gs,
-            use_skybox=use_skybox, use_proxy=use_proxy, sat_zimg=sat_zin)
-        with _hprof("render.back"):
-            img = self.back(binned, bg, depth_tiles, use_proxy=use_proxy,
-                            emit_zcut=sat_zin is not None)
-        if sat_zin is not None:
-            img, self.sat_zimg = img
-        self.last_aux = aux
+        plan = self.upload_plan(staged)
+
+        def attempt():
+            binned, bg, depth_tiles, aux = self.front(
+                plan, camera, scene, rc, render_gs=render_gs,
+                use_skybox=use_skybox, use_proxy=use_proxy, sat_zimg=sat_zin)
+            with _hprof("render.back"):
+                img = self.back(binned, bg, depth_tiles, use_proxy=use_proxy,
+                                emit_zcut=sat_zin is not None)
+            if sat_zin is not None:
+                img, self.sat_zimg = img
+            return img, aux
+
+        if pipeline_depth > 0 and not as_numpy:
+            img, aux = attempt()
+            self._inflight.append(self.post_aux(aux))
+            with _hprof("render.drain"):
+                while len(self._inflight) > pipeline_depth:
+                    self._drain_one()
+            return img
+        img = self.exactly(attempt)
         if not as_numpy:
             return img
         with _hprof("sync.readback"):

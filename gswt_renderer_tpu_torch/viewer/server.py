@@ -13,7 +13,9 @@ the port serves frames over HTTP instead:
   control.rs:294-579): record the current camera as a keyframe, remove,
   clear, play/pause, and import/export the reference's fly-path JSON.
 
-Throughput: the render loop runs pipelined full-rate frames; readback is
+Throughput: the render loop runs pipelined full-rate frames (Engine.frame
+without readback keeps Engine.pipeline_depth frames in flight; /hud's
+overflow_frames counts those that overflowed a pair budget); readback is
 decoupled — every `stream_ms` the latest frame is downscaled and converted
 to u8 ON THE FRAME'S DEVICE (a full 1080p f32 frame is 33 MB a grab; the
 downscaled u8 one 1.5 MB) and JPEG-encoded on the host.
@@ -231,9 +233,7 @@ def serve(engine, host="0.0.0.0", port=8080, scale: int = 2,
                     stream_truncated=getattr(
                         engine.renderer, "last_stream_truncated", 0
                     ),
-                    overflow_frames=getattr(
-                        engine.renderer, "overflow_frames", 0
-                    ),
+                    overflow_frames=engine.renderer.overflow_frames,
                     # exceptions the render loop caught, and the last one
                     render_errors=errors,
                     last_render_error=last_error,

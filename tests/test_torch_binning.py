@@ -60,7 +60,8 @@ def test_bin_pairs_matches_jax(cull_exact, seed, compact):
                         elem_paths=2, **kw)
     assert not bool(jb["overflow"])
     tb = tbin.bin_pairs(_torch_tree(p), image_wh=IMAGE_WH, tile_wh=TILE_WH,
-                        chunk=CHUNK, cull_exact=cull_exact)
+                        chunk=CHUNK, cull_exact=cull_exact,
+                        capacity=tbin.fit_capacity(jb["n_pairs"], CHUNK))
     jt = np.asarray(jb["table"])
     tt = tb["table"].numpy()
     rs, re_ = np.asarray(jb["range_start"]), np.asarray(jb["range_end"])
@@ -99,8 +100,10 @@ def test_bin_pairs_fast_matches_jax(cull_exact, seed, compact):
                         chunk=CHUNK, exact=False, cull_exact=cull_exact,
                         elem_paths=2, **kw)
     assert not bool(jb["overflow"])
+    cap = tbin.fit_capacity(jb["n_pairs"], CHUNK)
     tb = tbin.bin_pairs(_torch_tree(p), image_wh=IMAGE_WH, tile_wh=TILE_WH,
-                        chunk=CHUNK, exact=False, cull_exact=cull_exact)
+                        chunk=CHUNK, exact=False, cull_exact=cull_exact,
+                        capacity=cap)
     jt = np.asarray(jb["table"])
     tt = tb["table"].numpy()
     rs, re_ = np.asarray(jb["range_start"]), np.asarray(jb["range_end"])
@@ -128,7 +131,8 @@ def test_bin_pairs_fast_matches_jax(cull_exact, seed, compact):
                                    err_msg=f"row {row}")
     # the fast table differs from the exact one: the payload was quantized
     te = tbin.bin_pairs(_torch_tree(p), image_wh=IMAGE_WH, tile_wh=TILE_WH,
-                        chunk=CHUNK, exact=True, cull_exact=cull_exact)
+                        chunk=CHUNK, exact=True, cull_exact=cull_exact,
+                        capacity=cap)
     assert not np.array_equal(te["table"].numpy()[6], tt[6])
 
 
@@ -158,10 +162,12 @@ def test_expand_bboxes_matches_jax():
     jk, jp, jtot, _ = jbin.expand_bboxes(
         *(jnp.asarray(a.astype(np.int32)) for a in (x0, x1, y0, y1)),
         jnp.asarray(ok), ntx=ntx, n_tiles=ntx * nty, max_pairs=4096)
-    tk, tp, ttot = tbin.expand_bboxes(
+    tk, tp, ttot, tover = tbin.expand_bboxes(
         *(torch.from_numpy(a) for a in (x0, x1, y0, y1)),
-        torch.from_numpy(ok), ntx=ntx)
-    assert ttot == int(jtot)
+        torch.from_numpy(ok), ntx=ntx, n_tiles=ntx * nty,
+        capacity=int(jtot))
+    assert int(ttot) == int(jtot) == tk.shape[0] and not bool(tover)
+    ttot = int(ttot)
     np.testing.assert_array_equal(tk.numpy(), np.asarray(jk)[:ttot])
     np.testing.assert_array_equal(tp.numpy(), np.asarray(jp)[:ttot])
 

@@ -31,6 +31,7 @@ import torch
 
 from gswt_renderer_tpu_torch.ops import binning, kernels, raster, texsample, trirast
 from gswt_renderer_tpu_torch.ops.blockgather import block_gather, block_gather_plain
+from torch_tables import fitted
 
 TOL = 1e-4
 
@@ -152,7 +153,9 @@ def test_raster_on_binned_random_splats(cuda, seed):
          .to(cuda) for k, v in p.items()}
     p["q"] = tuple(torch.from_numpy(x).to(cuda) for x in (qa, qb, qc))
     p["color"] = tuple(torch.from_numpy(x).to(cuda) for x in col)
-    b = binning.bin_pairs(p, image_wh=image_wh, tile_wh=tile_wh, chunk=chunk)
+    b = fitted(lambda cap: binning.bin_pairs(
+        p, image_wh=image_wh, tile_wh=tile_wh, chunk=chunk, capacity=cap),
+        lambda b: b["n_pairs"], chunk)
     depth = torch.rand((16, 64 * 32), device=cuda,
                        generator=torch.Generator(device=cuda).manual_seed(seed))
     for use_depth in (False, True):
@@ -195,9 +198,10 @@ def test_raster_zcut_variant_equals_plain(cuda, seed, exact):
     entry, the colour stays within TOL, and emitting the record does not
     change the colour the kernel writes."""
     image_wh, tile_wh, chunk = (256, 128), (64, 32), 128
-    b = binning.bin_pairs(_opaque_splats(1024, seed, cuda), image_wh=image_wh,
-                          tile_wh=tile_wh, chunk=chunk, exact=exact,
-                          cull_exact=False)
+    p = _opaque_splats(1024, seed, cuda)
+    b = fitted(lambda cap: binning.bin_pairs(
+        p, image_wh=image_wh, tile_wh=tile_wh, chunk=chunk, exact=exact,
+        cull_exact=False, capacity=cap), lambda b: b["n_pairs"], chunk)
     depth = torch.ones((16, 64 * 32), device=cuda)
     kw = dict(image_wh=image_wh, tile_wh=tile_wh, chunk=chunk,
               use_depth=False, exact=exact)
@@ -242,8 +246,9 @@ def test_raster_fast_variant_matches_plain(cuda, seed):
     image_wh, tile_wh, chunk = (256, 128), (64, 32), 256
     p = _opaque_splats(3000, seed, cuda)
     p["color"] = p["color"][:3] + (p["color"][3] * 0.4,)
-    b = binning.bin_pairs(p, image_wh=image_wh, tile_wh=tile_wh, chunk=chunk,
-                          exact=False)
+    b = fitted(lambda cap: binning.bin_pairs(
+        p, image_wh=image_wh, tile_wh=tile_wh, chunk=chunk, exact=False,
+        capacity=cap), lambda b: b["n_pairs"], chunk)
     depth = 0.1 + 0.8 * torch.rand(
         (16, 64 * 32), device=cuda,
         generator=torch.Generator(device=cuda).manual_seed(seed))
@@ -527,8 +532,9 @@ def _tri_rows(xs, ys, zs, attrs, device, image_wh, tile_wh):
     planes, ok, bbox = trirast.triangle_planes(
         t(xs), t(ys), t(zs), torch.ones((3, n), device=device), t(attrs),
         torch.ones(n, dtype=torch.bool, device=device))
-    return trirast.bin_triangles(planes, bbox, ok, image_wh=image_wh,
-                                 tile_wh=tile_wh)
+    return fitted(lambda cap: trirast.bin_triangles(
+        planes, bbox, ok, image_wh=image_wh, tile_wh=tile_wh, capacity=cap),
+        lambda out: out[3])
 
 
 def _assert_trirast_equal(rows, rs, re_, image_wh, tile_wh, chunk=128):
@@ -950,8 +956,9 @@ def test_raster_on_binned_splats_other_tile_sizes(cuda, tile_wh, exact,
     p["cx"] = p["cx"] * (image_wh[0] / 256)
     p["cy"] = p["cy"] * (image_wh[1] / 128)
     p["color"] = p["color"][:3] + (p["color"][3] * 0.5,)
-    b = binning.bin_pairs(p, image_wh=image_wh, tile_wh=tile_wh, chunk=256,
-                          exact=exact)
+    b = fitted(lambda cap: binning.bin_pairs(
+        p, image_wh=image_wh, tile_wh=tile_wh, chunk=256, exact=exact,
+        capacity=cap), lambda b: b["n_pairs"], 256)
     n_tiles = b["range_start"].shape[0]
     depth = 0.1 + 0.9 * torch.rand(
         (n_tiles, tile_wh[0] * tile_wh[1]), device=cuda,
@@ -1123,6 +1130,55 @@ def test_nccl_group_of_one_is_the_plain_frame(bench_frame):
         assert torch.equal(imgs[i], ref), i
         if i == 0:
             assert torch.equal(img, ref)
+
+
+def test_pipelined_frames_equal_depth0_frames_at_1080p(bench_frame):
+    """Frames at pipeline_depth 2, completed by drain(), bit-equal to the
+    depth-0 frames of the same cameras and plan once the budgets have grown
+    (the depth-0 pass grows them); two frames in flight at most."""
+    f = bench_frame
+    r = f["r"]
+    cams = [f["camera"](0.25 * i) for i in range(4)]
+
+    def frames(depth):
+        out = []
+        for c in cams:
+            out.append(r.render(None, c, f["sp"], f["rc"], staged=f["staged"],
+                                as_numpy=False, pipeline_depth=depth,
+                                **f["full"]))
+            assert len(r._inflight) <= depth
+        return out
+
+    ref = frames(0)
+    before = r.overflow_frames
+    piped = frames(2)
+    assert len(r._inflight) == 2
+    r.drain()
+    assert not r._inflight and r.overflow_frames == before
+    for i, (a, b) in enumerate(zip(ref, piped)):
+        assert torch.equal(a, b), i
+
+
+def test_pipelined_frame_makes_no_wait_under_sync_debug_error(bench_frame):
+    """A pipelined 1080p full-config frame under PyTorch's sync debug mode
+    "error": no tensor operation of the frame waits for the device (the
+    drain of the oldest frame is an event's synchronize, which the mode
+    does not see)."""
+    f = bench_frame
+    r = f["r"]
+    r.render(None, f["camera"](), f["sp"], f["rc"], staged=f["staged"],
+             as_numpy=False, **f["full"])  # budgets grown, plan uploaded
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(3):
+            img = r.render(None, f["camera"](0.1 * i), f["sp"], f["rc"],
+                           staged=f["staged"], as_numpy=False,
+                           pipeline_depth=2, **f["full"])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    r.drain()
+    assert tuple(img.shape) == (1080, 1920, 4)
+    assert bool(torch.isfinite(img).all())
 
 
 def test_server_streams_a_frame_jpg(cuda):

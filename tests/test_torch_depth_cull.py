@@ -22,6 +22,7 @@ from gswt_renderer_tpu_torch.io.synth import synthetic_scene_vec
 from gswt_renderer_tpu_torch.ops import binning as tbin
 from gswt_renderer_tpu_torch.ops import raster
 from gswt_renderer_tpu_torch.render.pipeline import RendererConfig
+from torch_tables import fitted
 
 IMAGE_WH, TILE_WH, CHUNK = (256, 128), (64, 32), 128
 
@@ -89,10 +90,13 @@ def test_occ_zimg_keeps_the_pairs_jax_keeps(kind, cull_exact):
         elem_paths=2, cull_exact=cull_exact, occ_zimg=jnp.asarray(zimg))
     assert not bool(jb["overflow"])
     tp = jax.tree_util.tree_map(torch.from_numpy, p)
+    cap = tbin.fit_capacity(jb["n_pairs"], CHUNK)
     tb = tbin.bin_pairs(tp, image_wh=IMAGE_WH, tile_wh=TILE_WH, chunk=CHUNK,
-                        cull_exact=cull_exact, occ_zimg=torch.from_numpy(zimg))
-    base = tbin.bin_pairs(tp, image_wh=IMAGE_WH, tile_wh=TILE_WH, chunk=CHUNK,
-                          cull_exact=cull_exact)
+                        cull_exact=cull_exact, occ_zimg=torch.from_numpy(zimg),
+                        capacity=cap)
+    base = fitted(lambda c: tbin.bin_pairs(
+        tp, image_wh=IMAGE_WH, tile_wh=TILE_WH, chunk=CHUNK,
+        cull_exact=cull_exact, capacity=c), lambda b: b["n_pairs"], CHUNK)
     rs, re_ = np.asarray(jb["range_start"]), np.asarray(jb["range_end"])
     np.testing.assert_array_equal(tb["range_start"].numpy(), rs)
     np.testing.assert_array_equal(tb["range_end"].numpy(), re_)

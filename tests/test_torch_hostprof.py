@@ -81,10 +81,12 @@ def test_profiler_off_records_nothing_and_on_counts_each_frame():
         np.testing.assert_array_equal(a, b)
     prof = pipeline.HOST_PROF
     assert pipeline.HOST_PROF is hostprof.HOST_PROF
+    # each frame read back: its plan uploaded, its counts sent to the host
+    # after its last launch and read at its end (depth 0)
     for name in ("frame.update_pump", "frame.stage", "stage.plan",
-                 "stage.prep", "render.uniforms", "sync.uniforms",
-                 "render.back", "sync.readback", "sync.bin_pairs",
-                 "sync.expand_bboxes") + FRONT:
+                 "stage.prep", "render.uniforms", "render.plan",
+                 "render.back", "sync.readback", "render.aux",
+                 "sync.aux") + FRONT:
         assert prof[name][0] == N, (name, prof.get(name))
     for n, total, own in prof.values():
         assert n > 0 and total >= own >= 0.0
@@ -173,8 +175,12 @@ def test_profile_hostloop_accounts_for_the_frame():
     assert res["frames"] == 6 and res["wall_ms"] > 0 and res["gap_ms"] > 0
     sec = res["sections"]
     for name in ("frame.update_pump", "render.uniforms", "render.back",
-                 "sync.bin_pairs", "sync.expand_bboxes") + FRONT:
+                 "render.aux") + FRONT:
         assert sec[name]["n"] == 6, (name, sec.get(name))
+    # pipelined frames (depth 2): each completes the frames beyond the
+    # depth, the script's drain the rest; none reads its counts at its end
+    assert res["depth"] == 2 and sec["render.drain"]["n"] == 6 + 1
+    assert "sync.aux" not in sec and res["overflow_frames"] >= 0
     # the builder thread stages the sorts; the render thread never does
     assert "frame.stage" not in sec and sec["stage.plan"]["n"] >= 1
     assert res["accounted_ms"] == pytest.approx(

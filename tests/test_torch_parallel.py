@@ -173,16 +173,17 @@ def test_block_demand_matches_jax(exact, seed, n):
                         image_wh=image_wh, tile_wh=tile_wh,
                         max_pairs=1 << 15, chunk=128, exact=exact,
                         elem_paths=2, emit_block_demand=True)
+    cap = tbin.fit_capacity(jb["n_pairs"], 128)
     tb = tbin.bin_pairs(jax.tree_util.tree_map(torch.from_numpy, p),
                         image_wh=image_wh, tile_wh=tile_wh, chunk=128,
-                        exact=exact, emit_block_demand=True)
+                        exact=exact, emit_block_demand=True, capacity=cap)
     want = np.asarray(jb["block_demand"])
     assert want.shape == (-(-n // 256),)
     np.testing.assert_array_equal(tb["block_demand"].numpy(), want)
     assert int(want.sum()) == tb["n_pairs"]
     assert "block_demand" not in tbin.bin_pairs(
         jax.tree_util.tree_map(torch.from_numpy, p), image_wh=image_wh,
-        tile_wh=tile_wh, chunk=128, exact=exact)
+        tile_wh=tile_wh, chunk=128, exact=exact, capacity=cap)
 
 
 def test_stream_segments_cross_draw_boundaries(scene):

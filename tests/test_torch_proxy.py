@@ -24,6 +24,7 @@ from gswt_renderer_tpu.ops.project import pack_tex4
 from gswt_renderer_tpu.render.pipeline import Renderer as JaxRenderer
 from gswt_renderer_tpu_torch.ops import proxy as tprox
 from gswt_renderer_tpu_torch.ops import texsample as ttex
+from torch_tables import fitted
 
 W, H = 96, 64
 TILE = (32, 16)
@@ -93,8 +94,9 @@ def test_sample_mip_trilinear_matches_jax():
     ref = np.asarray(jprox.sample_mip_trilinear(
         jnp.asarray(atlas), meta, jnp.asarray(u), jnp.asarray(v),
         jnp.asarray(rho)))
-    got = tprox.sample_mip_trilinear(tprox.atlas_words(atlas), meta, _t(u),
-                                     _t(v), _t(rho)).numpy()
+    got = tprox.sample_mip_trilinear(
+        tprox.atlas_words(atlas), tprox.mip_table(meta, "cpu"), _t(u), _t(v),
+        _t(rho)).numpy()
     np.testing.assert_allclose(got, ref, rtol=0, atol=2e-6)
 
 
@@ -126,7 +128,8 @@ def _render_both(*, use_grid, surface_type, black=False, use_clip=False,
               use_grid=use_grid, n_steps=48, max_dist=300.0)
     jproxy = dict(atlas=jnp.asarray(atlas), verts=jnp.asarray(verts),
                   tris=jnp.asarray(tris))
-    tproxy = dict(atlas=tprox.atlas_words(atlas), verts=_t(verts),
+    tproxy = dict(atlas=tprox.atlas_words(atlas),
+                  mip_tab=tprox.mip_table(meta, "cpu"), verts=_t(verts),
                   tris=_t(tris))
     if with_pyr:
         jp, jmeta, jl = jtex.pack_pyramid(mips)
@@ -137,8 +140,9 @@ def _render_both(*, use_grid, surface_type, black=False, use_clip=False,
         kw["mip_pyr"] = (tmeta, tl)
     ref = jprox.render_proxy(jcam, jscene, (W, H), jnp.asarray(hm4), hm_wh,
                              jproxy, (32, 32), interpret=True, **kw)
-    got = tprox.render_proxy(tcam, tscene, (W, H), _t(hm4), hm_wh, tproxy,
-                             (32, 32), **kw)
+    got = fitted(lambda cap: tprox.render_proxy(
+        tcam, tscene, (W, H), _t(hm4), hm_wh, tproxy, (32, 32),
+        proxy_pairs=cap, **kw), lambda out: out[3]["proxy_pairs"])
     return ref, got
 
 

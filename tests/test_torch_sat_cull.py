@@ -32,6 +32,7 @@ from gswt_renderer_tpu_torch.ops import binning, raster
 from gswt_renderer_tpu_torch.render.pipeline import (
     Renderer, RendererConfig, state_from_numpy)
 from test_torch_raster import _proj_opaque
+from torch_tables import fitted
 
 IMAGE_WH, TILE_WH, CHUNK = (256, 128), (64, 32), 128
 NTX, NTY = 4, 4
@@ -48,9 +49,10 @@ def _to_bands(zc):
 
 
 def _run(p, cut, exact=True):
-    binned = binning.bin_pairs(
+    binned = fitted(lambda cap: binning.bin_pairs(
         _torch_tree(p), image_wh=IMAGE_WH, tile_wh=TILE_WH, chunk=CHUNK,
-        exact=exact, cull_exact=False, sat_simg=cut)
+        exact=exact, cull_exact=False, sat_simg=cut, capacity=cap),
+        lambda b: b["n_pairs"], CHUNK)
     color, zcut = raster.rasterize(
         binned, torch.ones((NTX * NTY, 64 * 32)), image_wh=IMAGE_WH,
         tile_wh=TILE_WH, chunk=CHUNK, use_depth=False, exact=exact,
@@ -92,7 +94,8 @@ def test_sat_simg_cull_keeps_the_pairs_jax_keeps(seed, exact):
             elem_paths=2, sat_simg=jnp.asarray(cut))
         tb = binning.bin_pairs(
             _torch_tree(p), image_wh=IMAGE_WH, tile_wh=TILE_WH, chunk=CHUNK,
-            exact=exact, cull_exact=False, sat_simg=torch.from_numpy(cut))
+            exact=exact, cull_exact=False, sat_simg=torch.from_numpy(cut),
+            capacity=binning.fit_capacity(jb["n_pairs"], CHUNK))
         rs, re_ = np.asarray(jb["range_start"]), np.asarray(jb["range_end"])
         np.testing.assert_array_equal(tb["range_start"].numpy(), rs)
         np.testing.assert_array_equal(tb["range_end"].numpy(), re_)

@@ -16,6 +16,7 @@ import torch
 
 from gswt_renderer_tpu.ops import trirast as jtri
 from gswt_renderer_tpu_torch.ops import trirast as ttri
+from torch_tables import fitted
 
 W, H = 128, 96
 TILE = (64, 32)
@@ -43,9 +44,9 @@ def _jax_planes(xs, ys, zs, ws, attrs):
 
 
 def _torch_raster(planes, bbox, ok, image_wh=(W, H), chunk=128):
-    out = ttri.rasterize_triangles(
+    out = fitted(lambda cap: ttri.rasterize_triangles(
         _t(planes), tuple(_t(b) for b in bbox), _t(ok), image_wh=image_wh,
-        tile_wh=TILE, chunk=chunk)
+        tile_wh=TILE, chunk=chunk, capacity=cap), lambda o: o["n_pairs"])
     z, at = ttri.tiles_to_maps(out["tiles"], image_wh=image_wh, tile_wh=TILE)
     return z.numpy(), at.numpy(), out["n_pairs"]
 
@@ -181,7 +182,7 @@ def test_empty_tiles_read_far_plane_and_offscreen_is_dropped():
                                    np.zeros((3, 3, 2), np.float32))
     out = ttri.rasterize_triangles(
         _t(planes), tuple(_t(b) for b in bbox), _t(ok), image_wh=(W, H),
-        tile_wh=TILE)
+        tile_wh=TILE, capacity=128)
     assert out["n_pairs"] == 1  # the off-screen triangle makes no pair
     tiles = out["tiles"].numpy()
     assert tiles.shape == (6, 5, 64 * 32)
@@ -190,7 +191,7 @@ def test_empty_tiles_read_far_plane_and_offscreen_is_dropped():
     # no triangle at all
     none = ttri.rasterize_triangles(
         _t(planes), tuple(_t(b) for b in bbox), torch.zeros(2, dtype=torch.bool),
-        image_wh=(W, H), tile_wh=TILE)
+        image_wh=(W, H), tile_wh=TILE, capacity=128)
     assert none["n_pairs"] == 0
     assert (none["tiles"][:, 0] == 1.0).all()
     assert (none["tiles"][:, 1:] == 0.0).all()

@@ -20,7 +20,8 @@ import torch
 from gswt_renderer_tpu.ops import trirast as jtri
 from gswt_renderer_tpu_torch.ops import raster as traster
 from gswt_renderer_tpu_torch.ops import trirast as ttri
-from torch_tables import TRI_KINDS, adversarial_triangles, binned_triangles
+from torch_tables import (TRI_KINDS, adversarial_triangles, binned_triangles,
+                          fitted)
 
 IMG = (384, 256)
 TILE = (64, 32)
@@ -173,9 +174,9 @@ def test_split_and_masked_rasters_match_jax_interpret():
     tris[4][0] /= tris[4].shape[2]   # attributes in [-1, 1], as there
     planes, ok, bbox = _jax_planes(tris)
     t = lambda a: torch.from_numpy(np.array(a))
-    rows, rs, re_, n = ttri.bin_triangles(
+    rows, rs, re_, n = fitted(lambda cap: ttri.bin_triangles(
         t(planes), tuple(t(b) for b in bbox), t(ok), image_wh=image_wh,
-        tile_wh=TILE)
+        tile_wh=TILE, capacity=cap), lambda out: out[3])
     kw = _kw(128, image_wh)
     split = ttri.rasterize_split_plain(rows, rs, re_, **kw)
     masked = ttri.rasterize_triangles_plain(rows, rs, re_, block_mask=True,

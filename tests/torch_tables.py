@@ -8,6 +8,15 @@ from gswt_renderer_tpu_torch.ops import binning as tbin
 from gswt_renderer_tpu_torch.ops import raster as tr
 
 
+def fitted(call, demand, chunk=None):
+    """call(capacity) into the slots of its own demand: a first call at one
+    chunk (one slot) reads the demand (`demand(out)`), the second is sized
+    to it, rounded up to a whole chunk when one is given (bin_pairs'
+    fit_capacity) and exact otherwise (the triangle raster's pairs)."""
+    n = int(demand(call(chunk or 1)))
+    return call(tbin.fit_capacity(n, chunk) if chunk else n)
+
+
 def adversarial_pairs(seed, n_per_kind=64):
     """(cx, cy, qa, qb, qc) of pairs meant to break a block mask, relative
     to a tile whose origin is (0, 0): needle-thin and edge-on conics,
@@ -226,8 +235,9 @@ def binned_triangles(tris, image_wh=(384, 256), tile_wh=(64, 32),
     planes, ok, bbox = ttri.triangle_planes(
         xs, ys, zs, ws, attrs,
         torch.ones(xs.shape[1], dtype=torch.bool, device=device))
-    return ttri.bin_triangles(planes, bbox, ok, image_wh=image_wh,
-                              tile_wh=tile_wh)
+    return fitted(lambda cap: ttri.bin_triangles(
+        planes, bbox, ok, image_wh=image_wh, tile_wh=tile_wh, capacity=cap),
+        lambda out: out[3])
 
 
 def adversarial_micro_binned(seed, name, tile_wh, grid=(2, 2)):
