@@ -13,7 +13,12 @@ Phases, each printing its own line; any failure raises (non-zero exit):
    package): gs-only and with skybox + proxy, in the exact profile within
    the JAX parity budget and in the fast profile (the default) within the
    stated one, plus three sat-culled frames whose carried cut image must be
-   the CPU path's;
+   the CPU path's; and each gs-only frame against the port's oracle
+   (refrender/oracle.py, the literal transcription of the reference's WGSL
+   math) rendered on the card from the same inputs ([oracle] lines, with
+   the oracle's own time and splat count): exact within
+   tests/test_pipeline.py's budget, fast + sat cull within
+   tests/test_fastmode.py's;
 4. kernels: on 1080p frames of the bench scene, each kernel against its
    plain version on the same inputs (block gather bit-exact; compositor
    <= 1e-4 per channel in the exact variant, without a depth test, with a
@@ -200,17 +205,56 @@ def _median_ms(torch, fn, windows: int = 7, reps: int = 10):
     return float(np.median(out)), out
 
 
-def phase_reference(torch):
+def phase_oracle(torch, fi, img, exact, label, smi):
+    """The card's gs-only frame `img` against the port's oracle rendered on
+    the card from the same FrameInputs. Exact profile: tests/test_pipeline.py's
+    budget (mean < 1e-4, at most 5e-4 of the pixels over 1e-3); fast profile:
+    tests/test_fastmode.py's (max <= 8/255, at most 0.5% of the values over
+    2/255, mean <= 0.5/255)."""
+    from gswt_renderer_tpu_torch.refrender import (
+        assemble_stream, project_draw, render_oracle)
+
+    h, w = img.shape[:2]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = render_oracle(fi, w, h, device="cuda")
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0
+    ref = ref.cpu().numpy()
+    stream = assemble_stream(fi, device="cuda")
+    n_valid = int(project_draw(fi, **stream)["valid"].sum())
+    d = np.abs(img - ref)
+    px = d.max(axis=-1)
+    if exact:
+        ok = px.mean() < 1e-4 and np.mean(px > 1e-3) <= 5e-4
+    else:
+        ok = (d.max() <= 8.0 / 255.0 and np.mean(d > 2.0 / 255.0) <= 0.005
+              and d.mean() <= 0.5 / 255.0)
+    print(f"[oracle] {label} gs-only {w}x{h} card frame against the port's "
+          f"oracle on the card: pixel mean {px.mean():.3e} max {px.max():.3e} "
+          f"over 1e-3 {np.mean(px > 1e-3):.2e}, value max {d.max() * 255:.3f}"
+          f"/255 over 2/255 {np.mean(d > 2.0 / 255.0):.2e} mean "
+          f"{d.mean() * 255:.4f}/255; oracle {oracle_s:.3f} s for "
+          f"{int(stream['gs_index'].shape[0])} splats in the stream "
+          f"({n_valid} composited), alpha {ref[..., 3].mean():.3f} | {smi}")
+    if not (np.isfinite(ref).all() and ref[..., 3].mean() > 0.1 and ok):
+        raise RuntimeError(f"{label}: the card's frame is outside its budget "
+                           "against the port's oracle")
+
+
+def phase_reference(torch, smi):
     """Small frames on the card against the port's CPU path, in both
     profiles. Budget: tests/test_pipeline.py's (mean < 1e-4 and at most 5e-4
     of the pixels over 1e-3), four times that share with the half-res
-    proxy."""
+    proxy. Each gs-only frame also against the port's oracle on the card
+    (phase_oracle)."""
     from gswt_renderer_tpu_torch.core import Camera, UserData
     from gswt_renderer_tpu_torch.core.config import (
         RenderConfig, SelectiveMergeType, SurfaceType, TileSortType)
     from gswt_renderer_tpu_torch.io.synth import synthetic_scene_vec
     from gswt_renderer_tpu_torch.render.pipeline import Renderer, RendererConfig
-    from gswt_renderer_tpu_torch.render.uniforms import SceneParams
+    from gswt_renderer_tpu_torch.render.uniforms import (
+        SceneParams, build_frame_inputs)
     from gswt_renderer_tpu_torch.benchmarks.headline import bench_textures
     from gswt_renderer_tpu_torch.tiles import WangTileEngine
 
@@ -239,6 +283,7 @@ def phase_reference(torch):
         dt = wang.sort_tiles(cam_pos, camera.view_proj())
         rc = RenderConfig.new(wang.n_tiles[0])
         sp = SceneParams.from_data(ud, wang.center_coord, rc)
+        fi = build_frame_inputs(wang, dt, camera, rc)
         for exact in (True, False):
             rs = {}
             for device in ("cuda", "cpu"):
@@ -275,6 +320,10 @@ def phase_reference(torch):
                         and np.mean(diff > 1e-3) <= frac):
                     raise RuntimeError(
                         "card frame disagrees with the CPU reference")
+                if not full:
+                    phase_oracle(torch, fi, gpu, exact,
+                                 f"{profile} surface {int(kw['surface_type'])}",
+                                 smi)
             if not exact and not torch.equal(rs["cuda"].sat_zimg.cpu(),
                                              rs["cpu"].sat_zimg):
                 raise RuntimeError("the card's saturation-slot image is not "
@@ -885,7 +934,7 @@ def main():
                 print(f"[build] {name} {entry}: {line.strip()}")
 
     # 3. reference on a small input
-    phase_reference(torch)
+    phase_reference(torch, smi)
 
     # the bench scene at 1080p through Engine
     width, height = 1920, 1080

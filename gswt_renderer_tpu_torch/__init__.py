@@ -15,6 +15,9 @@ its layout so each counterpart sits at the same path:
 - ``engine``    the session loop with its async builder thread (``Engine``)
 - ``parallel``  camera- and stream-parallel rendering over torch.distributed
 - ``viewer``    the CLI, headless fly-path frames and the HTTP viewer
+- ``refrender`` the golden oracle: a slow, literal transcription of the
+                reference's WGSL math on torch tensors, on the card or the
+                CPU, independent of ``ops``
 - ``benchmarks`` the headline fly-through and the A/B scripts
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
@@ -24,7 +27,7 @@ This package imports neither ``jax`` nor ``gswt_renderer_tpu``.
 Ported so far: the full-config frame (skybox + proxy ground + splats) in both
 profiles, the default fast profile (``RendererConfig.exact=False``, with the
 optional ``sat_cull`` and ``depth_cull``) and the exact one, the bench entry,
-the viewer and the parallel paths.
+the viewer, the parallel paths and the oracle.
 """
 
 __version__ = "0.1.0"

@@ -360,6 +360,58 @@ def test_renderer_frame_matches_cpu_path(cuda):
     assert diff.mean() < 1e-4 and np.mean(diff > 1e-3) <= 5e-4
 
 
+# the oracle on the card against its own CPU run: the card's float32 exp,
+# sin and cos, and PyTorch's division by a host number (its reciprocal times
+# the tensor on the card), differ from the CPU's by an ulp; the sphere's
+# tangent frame amplifies sin/cos as in tests/test_torch_oracle.py. A pixel
+# at a splat's A = -4 discard edge may fall to the other side on such an
+# ulp and move by up to exp(-4) times the splat's alpha: at most
+# ORACLE_CARD_EDGE of the pixels may lie past the tolerance, none past
+# exp(-4) (on an H100 the sphere frame had 4 of 9216 pixels past 1e-4, the
+# largest at 7.4e-3, with every splat's validity and depth the CPU's).
+ORACLE_CARD_TOL = {"flat": 1e-5, "heightmap": 1e-5, "sphere": 5e-5}
+ORACLE_CARD_EDGE = 2e-3
+
+
+@pytest.mark.parametrize("surface", sorted(ORACLE_CARD_TOL))
+def test_oracle_on_the_card_matches_its_cpu_run(cuda, surface):
+    from gswt_renderer_tpu_torch.core import Camera, UserData
+    from gswt_renderer_tpu_torch.core.config import RenderConfig, SurfaceType
+    from gswt_renderer_tpu_torch.io.synth import synthetic_scene_vec
+    from gswt_renderer_tpu_torch.refrender import assemble_stream, render_oracle
+    from gswt_renderer_tpu_torch.render.uniforms import build_frame_inputs
+    from gswt_renderer_tpu_torch.tiles import WangTileEngine
+
+    ui = dict(tile_map_half_wh=(2, 2), lod_max_dist=8.0)
+    cam, target, up = (2.0, 2.0, 6.0), (2.0, 2.0, 0.0), (0.0, 1.0, 0.0)
+    if surface == "heightmap":
+        ui.update(height_map_scale=(1.0, 0.3), height_map_wh=(8, 8),
+                  surface_type=SurfaceType.HEIGHT_MAP)
+        cam, target = (1.0, -5.0, 3.0), (1.0, 0.0, 0.5)
+    elif surface == "sphere":
+        ui.update(tile_map_half_wh=(5, 2), surface_type=SurfaceType.SPHERE,
+                  sphere_radius=15.0, lod_max_dist=30.0)
+        cam, target, up = (30.0, 0.0, 8.0), (0.0, 0.0, 0.0), (0.0, 0.0, 1.0)
+    wang = WangTileEngine(synthetic_scene_vec(n_lod=2, splats_per_tile=64))
+    wang.configure(UserData.from_ui(**ui))
+    cam_pos = np.asarray(cam, np.float32)
+    wang.build_tiles(cam_pos)
+    camera = Camera((96, 96), cam_pos, target, up, np.deg2rad(60.0), 0.1,
+                    200.0)
+    dt = wang.sort_tiles(cam_pos, camera.view_proj())
+    fi = build_frame_inputs(wang, dt, camera, RenderConfig.new(wang.n_tiles[0]))
+    for k, v in assemble_stream(fi, cuda).items():
+        assert torch.equal(v.cpu(), assemble_stream(fi, "cpu")[k]), k
+    img = render_oracle(fi, 96, 96, device=cuda)
+    assert img.is_cuda
+    ref = render_oracle(fi, 96, 96, device="cpu")
+    assert float(ref[..., 3].max()) > 0.2
+    err = (img.cpu() - ref).abs().amax(dim=-1)
+    assert float(err.max()) <= np.exp(-4.0), float(err.max())
+    share = float((err > ORACLE_CARD_TOL[surface]).float().mean())
+    assert share <= ORACLE_CARD_EDGE, share
+
+
 # ---------------------------------------------------------------------- #
 # the samplers and the triangle raster
 # ---------------------------------------------------------------------- #

@@ -176,3 +176,18 @@ def test_unported_paths_raise():
     eng.set_proxy(np.ones((4, 4, 3), np.float32))
     assert eng.use_skybox and eng.use_proxy
     eng.shutdown()
+
+
+def test_oracle_defaults_to_the_card(monkeypatch):
+    """render_oracle, like every entry point, asks for CUDA unless given
+    device="cpu", and raises before any work on a host without it."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    from gswt_renderer_tpu_torch.refrender import oracle
+
+    def ran(*args, **kw):
+        raise AssertionError("the oracle ran on the CPU")
+
+    monkeypatch.setattr(oracle, "assemble_stream", ran)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        oracle.render_oracle(None, 64, 64)

@@ -201,3 +201,55 @@ def test_render_proxy_mip_pyramid_matches_jax():
     # test_factored_mip_pyramid_matches_atlas_sampler
     d = np.abs(col - got_atlas[0].numpy())
     assert 0.0 < d.max() < 0.02 and d.mean() < 0.004
+
+
+# the far-plane ties of the witness below: a hit within this distance below
+# the far plane (the JAX package's float32 grid depths there are
+# 0.9999986-0.9999993)
+FAR_TIE = 2e-5
+
+
+@pytest.mark.parametrize("surface_type", [0, 1], ids=["flat", "heightmap"])
+def test_jax_proxy_eager_and_jitted_differ_at_far_plane_ties(surface_type):
+    """The reference's own float32 spread, which the port cannot match on
+    both sides. On the grid frames above, the JAX render_proxy run eagerly
+    and the same call under jax.jit (XLA may fuse and reorder the plane
+    set-up's float32 arithmetic) disagree on the hit mask; every pixel where
+    they do is a far-plane tie (the hit side's float32 depth within FAR_TIE
+    below 1), and there is at least one. The port's hit mask is the eager
+    one's exactly: its planes are the eager JAX planes bit for bit."""
+    import jax
+
+    jscene, tscene = _scene()
+    jcam, tcam = _cams()
+    hm4, hm_wh = _height_map()
+    atlas, meta = jprox.pack_mip_atlas(_texture())
+    verts, tris = jprox.make_map_grid((9, 9), (4, 4), 4.0)
+    kw = dict(surface_type=surface_type, height_offset=-0.5, brightness=0.9,
+              black_background=False, use_clip=False, clip_height=0.0,
+              mip_meta=meta, tile_wh=TILE, chunk=128, use_grid=True,
+              n_steps=48, max_dist=300.0)
+    jproxy = dict(atlas=jnp.asarray(atlas), verts=jnp.asarray(verts),
+                  tris=jnp.asarray(tris))
+
+    def run(cam, scene, hm, proxy):
+        return jprox.render_proxy(cam, scene, (W, H), hm, hm_wh, proxy,
+                                  (32, 32), interpret=True, **kw)[1:3]
+
+    eager = [np.asarray(x) for x in run(jcam, jscene, jnp.asarray(hm4), jproxy)]
+    jitted = [np.asarray(x) for x in jax.jit(run)(jcam, jscene,
+                                                  jnp.asarray(hm4), jproxy)]
+    (ez, ehit), (jz, jhit) = eager, jitted
+    flips = ehit != jhit
+    assert flips.sum() >= 1, "the two JAX paths should disagree somewhere"
+    hit_z = np.where(ehit, ez, jz)[flips]
+    assert ((hit_z < 1.0) & (hit_z >= 1.0 - FAR_TIE)).all(), hit_z
+    assert ehit.mean() > 0.2, "camera should see the ground"
+
+    tproxy = dict(atlas=tprox.atlas_words(atlas),
+                  mip_tab=tprox.mip_table(meta, "cpu"), verts=_t(verts),
+                  tris=_t(tris))
+    got = fitted(lambda cap: tprox.render_proxy(
+        tcam, tscene, (W, H), _t(hm4), hm_wh, tproxy, (32, 32),
+        proxy_pairs=cap, **kw), lambda out: out[3]["proxy_pairs"])
+    np.testing.assert_array_equal(got[2].numpy(), ehit)
