@@ -92,7 +92,7 @@ Phases, each printing its own line; any failure raises (non-zero exit):
    running and frozen;
 12. the fixed-camera and A/B scripts through their main() at their
    smallest honest setting, each in a launch-count window of its own
-   ([bench] <script> lines): profile_frame, stage_times, quick_full --ab,
+   ([bench] <script> lines): profile_frame, quick_full --ab,
    cull_ab (with and without the ellipse-tile cull), depth_cull_ab,
    proxydiv_ab, saturation (one 1080p frame), micro_background,
    inversion_ab (1080p and 4K) and configs --quick (its 4K and dense rows
@@ -332,22 +332,29 @@ def phase_reference(torch, smi):
 
 def phase_profile(torch, eng, fp, label, n: int = 4):
     """Where a frame's time goes: device time per pipeline stage (the
-    renderer's gswt.* profiler ranges) and per kernel, over n frames along
-    the fly path, beside the frame's wall time. Lines start with
-    `[profile] <label>`."""
+    host-section profiler's gswt.<section> ranges, on for the profiled
+    frames) and per kernel, over n frames along the fly path, beside the
+    frame's wall time. Lines start with `[profile] <label>`."""
     from torch.profiler import ProfilerActivity, profile
+
+    from gswt_renderer_tpu_torch.core import hostprof
 
     fp.reset_path()
     fp.start_path()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(n):
-            fp.handle_events(eng.camera, now_ms=15000.0 * (i + 0.5) / n)
-            eng.frame(readback=False)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    eng.renderer.drain()
+    hostprof.set_host_prof(True)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(n):
+                fp.handle_events(eng.camera, now_ms=15000.0 * (i + 0.5) / n)
+                eng.frame(readback=False)
+            eng.renderer.drain()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    finally:
+        hostprof.set_host_prof(False)
+        hostprof.HOST_PROF.clear()
     events = prof.key_averages()
 
     def per_frame(e, attr):
@@ -367,8 +374,9 @@ def phase_profile(torch, eng, fp, label, n: int = 4):
     # from its range on the device timeline; the device busy time linked
     # to its host range misses kernels launched outside PyTorch's
     # dispatcher (the ctypes-launched CUDA kernels)
-    for stage in ("gswt.skybox", "gswt.proxy", "gswt.project", "gswt.bin",
-                  "gswt.raster"):
+    for stage in ("gswt.render.front.skybox", "gswt.render.front.proxy",
+                  "gswt.render.front.project", "gswt.render.front.bin",
+                  "gswt.render.back"):
         span = sum(per_frame(e, "cuda_time_total") for e in on_device
                    if e.key == stage)
         host = [e for e in events if e.key == stage
@@ -401,41 +409,27 @@ def phase_profile(torch, eng, fp, label, n: int = 4):
 def phase_syncs(torch, eng, fp, label, n: int = 3):
     """[sync] Every call of n frames along the fly path (the last one read
     back, as Engine.frame does by default) that waits for the device, found
-    by PyTorch's sync debug mode, with the host-profiler section open at it
-    (core/hostprof.py). Fails if one lies outside a sync.* section or
+    by PyTorch's sync debug mode, which the host-section profiler turns on
+    and counts by the section open at each call (core/hostprof.py
+    trace().sync_sites). Fails if one lies outside a sync.* section or
     render.drain, or if none is found (the debug mode caught nothing)."""
-    import collections
-    import warnings
-
     from gswt_renderer_tpu_torch.core import hostprof
 
     root = os.path.dirname(os.path.abspath(__file__))
-    sites = collections.Counter()
-
-    def show(message, category, filename, lineno, file=None, line=None):
-        if "synchronizing CUDA operation" in str(message):
-            open_ = hostprof.open_sections()
-            sites[(os.path.relpath(filename, root), lineno,
-                   open_[-1] if open_ else "no section")] += 1
-
     fp.reset_path()
     fp.start_path()
     eng.renderer.drain()
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = show
-        hostprof.set_host_prof(True)
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            for i in range(n):
-                fp.handle_events(eng.camera,
-                                 now_ms=15000.0 * (i + 1) / (n + 1))
-                eng.frame(readback=i == n - 1)
-            eng.renderer.drain()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-            hostprof.set_host_prof(False)
-            hostprof.HOST_PROF.clear()
+    hostprof.set_host_prof(True)
+    try:
+        for i in range(n):
+            fp.handle_events(eng.camera, now_ms=15000.0 * (i + 1) / (n + 1))
+            eng.frame(readback=i == n - 1)
+        eng.renderer.drain()
+    finally:
+        hostprof.set_host_prof(False)
+        hostprof.HOST_PROF.clear()
+    sites = {(os.path.relpath(path, root), line, sec or "no section"): k
+             for (sec, path, line), k in hostprof.trace().sync_sites.items()}
     for (path, line, sec), k in sorted(sites.items()):
         print(f"[sync] {label}: {path}:{line} in {sec}, {k} in {n} frames")
     bad = [site for site in sites
@@ -580,7 +574,7 @@ def phase_scripts(need, per_frame):
     own that must hold `frames` launches of each kernel its frames run."""
     from gswt_renderer_tpu_torch.benchmarks import (
         configs, cull_ab, depth_cull_ab, inversion_ab, micro_background,
-        profile_frame, proxydiv_ab, quick_full, saturation, stage_times)
+        profile_frame, proxydiv_ab, quick_full, saturation)
     from gswt_renderer_tpu_torch.ops import kernels
 
     splat = ("block_gather", "raster")
@@ -603,10 +597,6 @@ def phase_scripts(need, per_frame):
           f"device ops "
           + ", ".join(f"{stage} {ms:.3f}" for ms, _, stage, _ in
                       res["device_ops"][:4]) + f" {tail}")
-    res, tail = run("stage_times", stage_times.main, ["-n", "3"], splat, 9)
-    print(f"[bench] stage_times: " + ", ".join(
-        f"{k} wall {res[k]['wall']:.2f} events {res[k]['events']:.2f}"
-        for k in ("project", "binning", "raster")) + f" ms {tail}")
     res, tail = run("quick_full", quick_full.main, ["-n", "4", "--ab"],
                     per_frame, 12)
     print(f"[bench] quick_full --ab: " + "; ".join(

@@ -12,9 +12,11 @@ its tiles built and sorted once at the fly path's t = 0 pose, 1920x1080,
 
 It times `-n` device-complete frames (host clock, stopped after a
 synchronize), then profiles 3 frames under ``torch.profiler`` and prints
-the 25 device ops with the most self time, each attributed to the gswt.*
-stage (project, skybox, proxy, bin, raster) whose device range holds it,
-and the host (CPU) ops with the most self time. ``--trace DIR`` also writes
+the 25 device ops with the most self time, each attributed to the
+host-section profiler's stage range (gswt.render.front.project, .skybox,
+.proxy, .bin, gswt.render.back; the profiler is on while they are
+profiled) whose device range holds it, and the host (CPU) ops with the most
+self time. ``--trace DIR`` also writes
 the profiler's Chrome trace there. Runs on the card unless given --device
 cpu; the size arguments exist so a test can run it small.
 """
@@ -30,7 +32,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..core import Camera, UserData
+from ..core import Camera, UserData, hostprof
 from ..core.config import RenderConfig
 from ..io.synth import synthetic_scene_vec
 from ..render.pipeline import Renderer, RendererConfig
@@ -39,8 +41,9 @@ from ..tiles import WangTileEngine
 from .headline import KEYFRAMES, bench_textures, bench_user_data
 from .timing import device_complete_ms, fmt, open_device, spread
 
-STAGES = ("gswt.project", "gswt.skybox", "gswt.proxy", "gswt.bin",
-          "gswt.raster")
+STAGES = ("gswt.render.front.project", "gswt.render.front.skybox",
+          "gswt.render.front.proxy", "gswt.render.front.bin",
+          "gswt.render.back")
 
 
 def bench_camera(width, height, pos, target) -> Camera:
@@ -155,19 +158,24 @@ def profile_ops(bench, r, staged, device, n=3, top=25, trace=None):
     device rows (self ms per frame, calls per frame, stage, name) of the
     `top` device ops by self time, each in the gswt.* stage whose device
     range holds its start; host rows (self ms per frame, calls per frame,
-    name) of the `top` host ops."""
+    name) of the `top` host ops. The host-section profiler is on while they
+    are profiled (its ranges name the stages), off again after."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     r.drain()
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            bench.frame(r, staged)
-        r.drain()
-        wall = (time.perf_counter() - t0) * 1e3 / n
+    hostprof.set_host_prof(True)
+    try:
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                bench.frame(r, staged)
+            r.drain()
+            wall = (time.perf_counter() - t0) * 1e3 / n
+    finally:
+        hostprof.set_host_prof(False)
     if trace:
         os.makedirs(trace, exist_ok=True)
         prof.export_chrome_trace(os.path.join(trace, "frame_trace.json"))

@@ -16,10 +16,17 @@ between two frames' dispatch, ``host_prof_report()``, and per frame the
 render thread's host time the sections account for: the ``sync.*``
 sections and ``render.drain`` (where the host waits for the device) apart
 from the rest, and
-the remainder no section covers; beside them the builder thread's staging
-(``stage.plan``, ``stage.prep``), which overlaps the frames, its load and
+the remainder no section covers; beside them the builder thread's work
+(``stage.build``, ``stage.sort``, ``stage.plan``, ``stage.prep``), which
+overlaps the frames, its load and
 the pairs the last frame kept, and the profiled frames that overflowed a
-pair budget (depth 2) or were rendered again for it (depth 0). --frozen renders the same frames with the
+pair budget (depth 2) or were rendered again for it (depth 0). From the
+span log (``core/hostprof.py`` ``trace()``, ``span_counts``) it prints the
+builder's sorts along the leg with their merge counters (merged groups, the
+LRU's hits, splats sorted exactly), the time from a sort to the end of the
+frame that first draws it, and the share of the pair slots the frames'
+splat and proxy expansions were launched with that held a pair. --frozen
+renders the same frames with the
 builder frozen (Engine.lock_tile and lock_sort: no build, no sort, the
 last sort drawn), which shows what the builder's work beside the frames
 costs them. Runs on the card unless given --device cpu; the size arguments
@@ -33,6 +40,7 @@ import time
 
 import numpy as np
 
+from ..core import hostprof
 from ..io.synth import synthetic_scene_vec
 from ..render import pipeline
 from .headline import LEG_S, fly_path, make_engine
@@ -40,7 +48,7 @@ from .profile_frame import scene_args
 from .timing import open_device
 
 # the sections the builder thread records when the Engine has one
-BUILDER_SECTIONS = ("stage.plan", "stage.prep")
+BUILDER_SECTIONS = ("stage.build", "stage.sort", "stage.plan", "stage.prep")
 
 
 def account(prof: dict, n_frames: int, wall_ms: float) -> dict:
@@ -62,6 +70,53 @@ def account(prof: dict, n_frames: int, wall_ms: float) -> dict:
                 rest_ms=per(accounted - waits),
                 unaccounted_ms=wall_ms - per(accounted),
                 builder_ms=per(builder))
+
+
+def span_counts(tr) -> dict:
+    """From a span log read after the profiler was turned off
+    (hostprof.trace()): the builder's sorts (spans stage.sort), their mean
+    merged groups and splats sorted exactly, the share of the merged groups
+    the LRU served (%), the median time from a sort's end to the end of the
+    frame that first drew it (the frame's device end on the card, else its
+    host end; ms, and in frame ids from the frame whose pose it sorted
+    for), and over the frames' filed counts the share of the launched pair
+    slots that held a pair, splats and proxy (%). None where nothing was
+    recorded."""
+    def mean(v):
+        return float(np.mean(v)) if v else None
+
+    def share(num, den):
+        pairs = [(c[num], c[den]) for c in tr.frames.values()
+                 if c.get(den) and c.get(num) is not None]
+        cap = sum(d for _, d in pairs)
+        return sum(n for n, _ in pairs) / cap * 100.0 if cap else None
+
+    frames = {s.frame: s for s in tr.spans if s.name == "frame"}
+    sorts = [s for s in tr.spans if s.name == "stage.sort"]
+    hits = sum(s.counters.get("lru_hits", 0) for s in sorts)
+    looked = hits + sum(s.counters.get("lru_misses", 0) for s in sorts)
+    ms, lag = [], []
+    for s in sorts:
+        f = frames.get(s.counters.get("drawn_frame"))
+        if f is not None:
+            end = f.host_end if f.device_end is None else f.device_end
+            ms.append((end - s.host_end) * 1e3)
+            lag.append(f.frame - s.frame)
+    return dict(
+        sorts=len(sorts),
+        merged_groups=mean([s.counters["merged_groups"] for s in sorts
+                            if "merged_groups" in s.counters]),
+        exact_splats=mean([s.counters["exact_splats"] for s in sorts
+                           if "exact_splats" in s.counters]),
+        lru_hit_pct=hits / looked * 100.0 if looked else None,
+        sort_to_screen_ms=float(np.median(ms)) if ms else None,
+        sort_to_screen_frames=float(np.median(lag)) if lag else None,
+        pairs_used_pct=share("n_pairs", "capacity"),
+        proxy_pairs_used_pct=share("proxy_pairs", "proxy_capacity"))
+
+
+def _fmt(v, spec=".3f"):
+    return "-" if v is None else format(v, spec)
 
 
 def main(argv=None):
@@ -112,6 +167,7 @@ def main(argv=None):
         finally:
             pipeline.set_host_prof(False)
         prof = {k: list(v) for k, v in pipeline.HOST_PROF.items()}
+        spans = span_counts(hostprof.trace())
         gap_ms = float(np.median(np.diff(stamps))) * 1e3
         acc = account(prof, args.n, wall_ms)
         s_avg, s_trig = eng.sort_time_ma.calc()[0], eng.sort_trigger_ma.calc()[0]
@@ -129,11 +185,18 @@ def main(argv=None):
     print(f"[hostloop] render thread per frame: sections "
           f"{acc['accounted_ms']:.3f} ms = sync waits {acc['sync_ms']:.3f} + "
           f"the rest {acc['rest_ms']:.3f}; unaccounted "
-          f"{acc['unaccounted_ms']:.3f} ms; builder thread staging "
+          f"{acc['unaccounted_ms']:.3f} ms; builder thread work "
           f"{acc['builder_ms']:.3f} ms/frame (overlapped)")
     print(f"[hostloop] builder_load {load:.3f}, n_pairs_kept {kept}, "
-          f"overflow_frames {overflow}, overflow retries {retries}",
-          flush=True)
+          f"overflow_frames {overflow}, overflow retries {retries}")
+    print(f"[hostloop] builder: {spans['sorts']} sorts, merged groups "
+          f"{_fmt(spans['merged_groups'], '.1f')}/sort, LRU hits "
+          f"{_fmt(spans['lru_hit_pct'], '.1f')}%, splats sorted exactly "
+          f"{_fmt(spans['exact_splats'], '.0f')}/sort; sort to screen "
+          f"{_fmt(spans['sort_to_screen_ms'])} ms "
+          f"({_fmt(spans['sort_to_screen_frames'], '.1f')} frames); pair "
+          f"slots used {_fmt(spans['pairs_used_pct'], '.2f')}% splats, "
+          f"{_fmt(spans['proxy_pairs_used_pct'], '.2f')}% proxy", flush=True)
     return dict(frames=args.n, frozen=args.frozen, depth=args.depth,
                 wall_ms=wall_ms, overflow_frames=overflow,
                 overflow_retries=retries,
@@ -141,7 +204,7 @@ def main(argv=None):
                 sections={k: dict(n=e[0], total_ms=e[1] * 1e3,
                                   self_ms=e[2] * 1e3)
                           for k, e in prof.items()},
-                builder_load=load, n_pairs_kept=kept, **acc)
+                builder_load=load, n_pairs_kept=kept, **acc, **spans)
 
 
 if __name__ == "__main__":

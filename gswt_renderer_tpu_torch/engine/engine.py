@@ -16,6 +16,15 @@ Reproduces the reference's session layer (state.rs):
 
 The builder stages each sort's block plan as host numpy; the render thread
 uploads it, so no CUDA stream crosses threads.
+
+Engine.frame numbers its frames (core/hostprof.py next_frame). While the
+host-section profiler is on, a frame is the span ``frame`` (device-timed:
+its device end is the frame's completion), and the builder's work carries
+the id of the frame whose pose it was given: ``stage.build`` around
+build_tiles, ``stage.sort`` around sort_tiles (with the sort's merged
+groups, LRU hits and misses and splats sorted exactly, and the id of the
+frame that first draws it, ``drawn_frame``; benchmarks/profile_hostloop.py
+reads them), and the sort's staging (``stage.plan``, ``stage.prep``).
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ import threading
 
 import numpy as np
 
+from ..core import hostprof
 from ..core.camera import Camera
 from ..core.config import RenderConfig, UserData
 from ..core.metrics import IncrementalMA, get_time_milliseconds
@@ -94,19 +104,23 @@ class _Builder:
 
             got, binfo = self._drain(self.q_build_info)
             if got:
-                do_build, camera_pos = binfo
+                do_build, camera_pos, frame = binfo
+                hostprof.set_thread_frame(frame)
                 cur_camera_pos = np.asarray(camera_pos, np.float32)
                 if do_build and self.wang.check_update(cur_camera_pos):
                     start = get_time_milliseconds()
-                    scene_data = self.wang.build_tiles(cur_camera_pos)
+                    with _hprof("stage.build"):
+                        scene_data = self.wang.build_tiles(cur_camera_pos)
                     scene_data.scene_id = next_scene_id
                     self.out_scene.put(scene_data)
                     self.out_build_time.put(get_time_milliseconds() - start)
                     next_scene_id += 1
                 idle = False
 
-            got, vp = self._drain(self.q_vp)
+            got, item = self._drain(self.q_vp)
             if got and cur_camera_pos is not None:
+                vp, frame = item
+                hostprof.set_thread_frame(frame)
                 skip = False
                 if not self.wang.user_data.always_sort and prev_vp is not None:
                     if float(np.abs(prev_vp - vp).sum()) < 0.01:
@@ -114,17 +128,26 @@ class _Builder:
                 if not skip:
                     prev_vp = vp
                     start = get_time_milliseconds()
-                    dt = self.wang.sort_tiles(cur_camera_pos, vp)
+                    dt, span = _sort(self.wang, cur_camera_pos, vp)
                     dt.scene_id = next_scene_id - 1
                     staged = (
                         self.stage_fn(dt, vp) if self.stage_fn is not None else None
                     )
-                    self.out_sort.put((dt, staged))
+                    self.out_sort.put((dt, staged, span))
                     self.out_sort_time.put(get_time_milliseconds() - start)
                 idle = False
 
             if idle:
                 self._stop.wait(0.001)
+
+
+def _sort(wang: WangTileEngine, camera_pos, vp):
+    """sort_tiles as the span stage.sort (sort_tiles adds its merge counts
+    to it). Returns (DrawTable, the span or None while the profiler is
+    off)."""
+    with _hprof("stage.sort") as sec:
+        dt = wang.sort_tiles(camera_pos, vp)
+    return dt, sec.span()
 
 
 class Engine:
@@ -172,6 +195,8 @@ class Engine:
         self._staged = None
         self._staged_sort = None   # the DrawTable object _staged was built from
         self._next_staged = None
+        self._next_sort_span = None  # next_sort's stage.sort span, if traced
+        self.frame_id = 0            # the last frame's id (frame())
 
         # metrics (structure.rs:224-230)
         window = 200
@@ -251,7 +276,8 @@ class Engine:
             if update_worker:
                 if not self.lock_tile and self.wang.check_update(self.camera.position):
                     start = get_time_milliseconds()
-                    sd = self.wang.build_tiles(self.camera.position)
+                    with _hprof("stage.build"):
+                        sd = self.wang.build_tiles(self.camera.position)
                     sd.scene_id = getattr(self, "_sync_id", 0)
                     self.build_time_ma.add(get_time_milliseconds() - start)
                     self.build_trigger_ma.add(1.0)
@@ -261,8 +287,8 @@ class Engine:
                     self.build_trigger_ma.add(0.0)
                 if not self.lock_sort:
                     start = get_time_milliseconds()
-                    dt = self.wang.sort_tiles(
-                        self.camera.position, self.camera.view_proj()
+                    dt, self._next_sort_span = _sort(
+                        self.wang, self.camera.position, self.camera.view_proj()
                     )
                     dt.scene_id = getattr(self, "_sync_id", 1) - 1
                     self.sort_time_ma.add(get_time_milliseconds() - start)
@@ -271,9 +297,10 @@ class Engine:
         else:
             b = self.builder
             if update_worker:
-                b.q_build_info.put((not self.lock_tile, self.camera.position.copy()))
+                b.q_build_info.put((not self.lock_tile, self.camera.position.copy(),
+                                    self.frame_id))
                 if not self.lock_sort:
-                    b.q_vp.put(self.camera.view_proj())
+                    b.q_vp.put((self.camera.view_proj(), self.frame_id))
             got, t = b._drain(b.out_sort_time)
             self.sort_time_ma.add(t) if got else None
             self.sort_trigger_ma.add(1.0 if got else 0.0)
@@ -283,9 +310,9 @@ class Engine:
             got, sd = b._drain(b.out_scene)
             if got:
                 self.next_scene = sd
-            got, pair = b._drain(b.out_sort)
+            got, item = b._drain(b.out_sort)
             if got:
-                self.next_sort, self._next_staged = pair
+                self.next_sort, self._next_staged, self._next_sort_span = item
             got, cfg = b._drain(b.out_user_data)
             if got and self.status == EngineStatus.POST_CONFIG:
                 self._finish_configure(cfg)
@@ -312,6 +339,8 @@ class Engine:
             self._promote_sort()
 
     def _promote_sort(self):
+        hostprof.annotate(self._next_sort_span, drawn_frame=self.frame_id)
+        self._next_sort_span = None
         self.cur_sort = self.next_sort
         if self._next_staged is not None:
             self._staged = self._next_staged
@@ -325,7 +354,14 @@ class Engine:
         readback) or None while not ready. Without readback the frame is
         rendered at pipeline_depth (complete only after a later frame or
         renderer.drain(); renderer.last_aux is then an older frame's), with
-        readback at depth 0 (exact, its counts in last_aux)."""
+        readback at depth 0 (exact, its counts in last_aux). Each call is
+        one frame id (hostprof.next_frame) and, while the host-section
+        profiler is on, one span ``frame``."""
+        self.frame_id = hostprof.next_frame()
+        with _hprof("frame", self.renderer.device):
+            return self._frame(update_worker, readback)
+
+    def _frame(self, update_worker: bool, readback: bool):
         now = get_time_milliseconds()
         self.frame_time_ma.add(now - self._frame_prev)
         self._frame_prev = now

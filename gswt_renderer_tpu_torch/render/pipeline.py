@@ -35,11 +35,20 @@ colours), takes the height-map gradient analytically, renders the proxy at
 half resolution through the mip-pyramid sampler kernel, and composites with
 bf16-rounded weights; on top of it sat_cull feeds the compositor's
 saturation-slot record of one frame into the next frame's binning. The exact
-profile follows the WGSL/oracle math and is the parity reference. The stages
-run under profiler ranges gswt.project, gswt.skybox, gswt.proxy, gswt.bin
-and gswt.raster, which chip_smoke.py's profile phase reads, and under the
-host-section profiler's sections (core/hostprof.py, re-exported here: off
-unless set_host_prof(True)).
+profile follows the WGSL/oracle math and is the parity reference.
+
+The stages run under the host-section profiler's sections
+(core/hostprof.py, re-exported here), which record nothing unless
+set_host_prof(True). While it is on, each section is a span in the span log
+and a profiler range ``gswt.<section>`` (gswt.render.front.project,
+gswt.render.front.skybox, gswt.render.front.proxy, gswt.render.front.bin,
+gswt.render.back, ...; chip_smoke.py's profile phase reads them); the
+render thread's sections that launch device work (render.sat_cut,
+render.uniforms, render.plan, render.front.project, .background, .skybox,
+.proxy, .bin, render.back, render.aux) also take a device start and end;
+and each frame's pair demand and the capacity its expansions were launched
+with are filed under its frame id once its counts are read back (_drain_one,
+exactly). Every launch of a frame falls inside one of them.
 """
 
 from __future__ import annotations
@@ -51,8 +60,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from ..core import hostprof
 from ..core.camera import Camera, CameraUniforms
 from ..core.config import RenderConfig
 from ..core.hostprof import (  # noqa: F401  (the profiler's public names)
@@ -341,7 +350,7 @@ class Renderer:
         # the uniforms' ring of pinned host buffers: [buffer, event] slots
         self._uni_ring = []
         self._uni_next = 0
-        # frames in flight, oldest first: (aux keys, pinned aux, end event)
+        # frames in flight, oldest first: post_aux's pending records
         self._inflight = []
 
     def set_state(self, state: dict):
@@ -692,7 +701,7 @@ class Renderer:
             d["tile_lod"], d["has_corners"])]
         parts.append(np.ascontiguousarray(d["corner_pos"], np.float32)
                      .view(np.int32))
-        with _hprof("render.plan"):
+        with _hprof("render.plan", self.device):
             if self.device.type == "cuda":
                 step = _PLAN_ALIGN // 4
                 offs = np.cumsum([0] + [-(-a.size // step) * step
@@ -798,6 +807,8 @@ class Renderer:
         if not c.exact and self.proxy_pyr is not None:
             prox["pyr"] = self.proxy_pyr
             mip_pyr = self.proxy_pyr_meta
+        capacity = self.proxy_budget.capacity(self.proxy_tris.shape[1],
+                                              PROXY_CHUNK)
         pcol, depth, hit, paux = render_proxy(
             cam_d, scene_d, p_wh, self.hm4, self.height_map_wh, prox,
             self.proxy_wh, surface_type=int(scene.surface_type),
@@ -807,9 +818,9 @@ class Renderer:
             use_clip=bool(rc.use_clip), clip_height=float(rc.clip_height),
             mip_meta=self.proxy_mip_meta, mip_pyr=mip_pyr,
             tile_wh=(c.proxy_tile_w, c.proxy_tile_h), chunk=PROXY_CHUNK,
-            proxy_pairs=self.proxy_budget.capacity(
-                self.proxy_tris.shape[1], PROXY_CHUNK),
+            proxy_pairs=capacity,
         )
+        paux["proxy_capacity"] = capacity
         if div > 1:
             # depth/hit upsample NEAREST (bilinear would blend across
             # silhouettes and fabricate halo depths); colour bilinear for
@@ -839,7 +850,7 @@ class Renderer:
         previous frame's dilated saturation-slot image (binning's sat_simg).
         emit_block_demand moves binning's per-block pair demand into
         aux["block_demand"]."""
-        with _hprof("render.uniforms"):
+        with _hprof("render.uniforms", self.device):
             uniforms = self.pack_uniforms(camera, scene, rc, render_gs)
         return self.front_packed(
             plan, uniforms, scene, rc, use_skybox=use_skybox,
@@ -852,13 +863,12 @@ class Renderer:
                      emit_block_demand: bool = False):
         """front() from packed uniforms ([UNIFORMS_LEN] f32 on the device,
         pack_uniforms or a row of parallel/batched.py pack_camera_batch)."""
-        with _hprof("render.front.project"):
+        with _hprof("render.front.project", self.device):
             unpacked = self.unpack_frame_uniforms(uniforms)
-            with record_function("gswt.project"):
-                p = self._project(plan, unpacked, scene, rc)
+            p = self._project(plan, unpacked, scene, rc)
         bg, depth_tiles, aux = self.background(
             unpacked, scene, rc, use_skybox=use_skybox, use_proxy=use_proxy)
-        with _hprof("render.front.bin"):
+        with _hprof("render.front.bin", self.device):
             binned, bin_aux = self.bin_pairs(
                 p, depth_tiles, use_proxy=use_proxy, sat_zimg=sat_zimg,
                 emit_block_demand=emit_block_demand)
@@ -872,29 +882,31 @@ class Renderer:
         background the compositor's output lies over and the depth it is
         tested against (1.0 without the proxy); aux holds proxy_pairs (the
         grid raster's pair demand) and proxy_overflow (beyond the proxy
-        budget), 0-d tensors, when the proxy was drawn."""
+        budget), 0-d tensors, and proxy_capacity (the host int the raster
+        was launched with), when the proxy was drawn."""
         c = self.cfg
         image_wh = (c.width, c.height)
         scene_d, cam_d = unpacked[0], unpacked[1]
         aux = {}
-        if use_skybox:
-            with _hprof("render.front.skybox"), record_function("gswt.skybox"):
-                bg = render_skybox(cam_d, image_wh, self.skybox_tex,
-                                   equirect=self.skybox_equirect)
-        else:
-            bg = torch.zeros((c.height, c.width, 4), dtype=torch.float32,
-                             device=self.device)
-        if use_proxy:
-            with _hprof("render.front.proxy"), record_function("gswt.proxy"):
-                pcol, depth, hit, paux = self.proxy_pass(
-                    cam_d, scene_d, scene, rc)
-                bg = torch.where(hit[..., None], pcol, bg)
-            aux.update(paux)
-        else:
-            depth = torch.ones((c.height, c.width), dtype=torch.float32,
-                               device=self.device)
-        depth_tiles = raster.image_to_depth_tiles(
-            depth, image_wh=image_wh, tile_wh=(c.tile_w, c.tile_h))
+        with _hprof("render.front.background", self.device):
+            if use_skybox:
+                with _hprof("render.front.skybox", self.device):
+                    bg = render_skybox(cam_d, image_wh, self.skybox_tex,
+                                       equirect=self.skybox_equirect)
+            else:
+                bg = torch.zeros((c.height, c.width, 4), dtype=torch.float32,
+                                 device=self.device)
+            if use_proxy:
+                with _hprof("render.front.proxy", self.device):
+                    pcol, depth, hit, paux = self.proxy_pass(
+                        cam_d, scene_d, scene, rc)
+                    bg = torch.where(hit[..., None], pcol, bg)
+                aux.update(paux)
+            else:
+                depth = torch.ones((c.height, c.width), dtype=torch.float32,
+                                   device=self.device)
+            depth_tiles = raster.image_to_depth_tiles(
+                depth, image_wh=image_wh, tile_wh=(c.tile_w, c.tile_h))
         return bg, depth_tiles, aux
 
     def bin_pairs(self, p, depth_tiles, *, use_proxy: bool, sat_zimg=None,
@@ -902,7 +914,8 @@ class Renderer:
         """Binning of a projected stream (ops/binning.py bin_pairs) with the
         configured culls, into the capacity of `budget` (the splat pair
         budget when None) for the stream's lanes. Returns (binned, aux): aux
-        holds n_pairs, overflow, n_pairs_kept and n_live (0-d tensors), and
+        holds n_pairs, overflow, n_pairs_kept and n_live (0-d tensors),
+        pair_capacity (the host int the expansion was launched with), and
         block_demand with emit_block_demand."""
         c = self.cfg
         image_wh = (c.width, c.height)
@@ -911,16 +924,17 @@ class Renderer:
         if use_proxy and c.depth_cull:
             ntx, nty, _ = binning.grid_dims(image_wh, tile_wh)
             occ_zimg = depth_tiles.amax(dim=1).reshape(nty, ntx)
-        with record_function("gswt.bin"):
-            binned = binning.bin_pairs(
-                p, image_wh=image_wh, tile_wh=tile_wh, chunk=c.chunk,
-                exact=c.exact, cull_exact=c.cull_exact, occ_zimg=occ_zimg,
-                sat_simg=sat_zimg, emit_block_demand=emit_block_demand,
-                capacity=(budget or self.pair_budget).capacity(
-                    p["cx"].shape[0], c.chunk),
-            )
+        capacity = (budget or self.pair_budget).capacity(p["cx"].shape[0],
+                                                         c.chunk)
+        binned = binning.bin_pairs(
+            p, image_wh=image_wh, tile_wh=tile_wh, chunk=c.chunk,
+            exact=c.exact, cull_exact=c.cull_exact, occ_zimg=occ_zimg,
+            sat_simg=sat_zimg, emit_block_demand=emit_block_demand,
+            capacity=capacity,
+        )
         aux = {k: binned[k] for k in ("n_pairs", "overflow", "n_pairs_kept",
                                       "n_live")}
+        aux["pair_capacity"] = capacity
         if emit_block_demand:
             aux["block_demand"] = binned.pop("block_demand")
         return binned, aux
@@ -934,12 +948,11 @@ class Renderer:
         c = self.cfg
         image_wh = (c.width, c.height)
         tile_wh = (c.tile_w, c.tile_h)
-        with record_function("gswt.raster"):
-            tiles = raster.rasterize(
-                binned, depth_tiles, image_wh=image_wh, tile_wh=tile_wh,
-                chunk=c.chunk, use_depth=bool(use_proxy), exact=c.exact,
-                emit_zcut=emit_zcut,
-            )
+        tiles = raster.rasterize(
+            binned, depth_tiles, image_wh=image_wh, tile_wh=tile_wh,
+            chunk=c.chunk, use_depth=bool(use_proxy), exact=c.exact,
+            emit_zcut=emit_zcut,
+        )
         if emit_zcut:
             tiles, zcut = tiles
         img = raster.tiles_to_image(tiles, image_wh=image_wh, tile_wh=tile_wh)
@@ -1053,40 +1066,53 @@ class Renderer:
         shape = (nty * SAT_BANDS, ntx)
         if self.sat_zimg is not None and tuple(self.sat_zimg.shape) == shape:
             return self.sat_zimg
-        return torch.full(shape, SAT_NOCUT, dtype=torch.float32,
-                          device=self.device)
+        with _hprof("render.sat_cut", self.device):
+            return torch.full(shape, SAT_NOCUT, dtype=torch.float32,
+                              device=self.device)
 
     # ------------------------------------------------------------------ #
     def post_aux(self, aux):
         """Start a frame's counts on their way to the host, after its last
         launch: the AUX_KEYS it has as one int64 vector, copied into a
         pinned buffer with a non-blocking copy, an event behind it (the
-        frame's end). Returns the pending record for fetch_aux."""
+        frame's end). Returns the pending record for fetch_aux: (keys, the
+        vector, the event or None, and while the host-section profiler is
+        on (frame id, pair capacity, proxy capacity) as launched, else
+        None)."""
         keys = [k for k in AUX_KEYS if k in aux]
+        launched = ((hostprof.current_frame(), aux.get("pair_capacity"),
+                     aux.get("proxy_capacity")) if hostprof._PROF_ON else None)
         if not keys:
-            return keys, torch.zeros(0, dtype=torch.int64), None
-        with _hprof("render.aux"):
+            return keys, torch.zeros(0, dtype=torch.int64), None, launched
+        with _hprof("render.aux", self.device):
             vec = torch.stack([aux[k].reshape(()).to(torch.int64)
                                for k in keys])
             if not vec.is_cuda:
-                return keys, vec, None
+                return keys, vec, None, launched
             host = torch.empty(len(keys), dtype=torch.int64, pin_memory=True)
             host.copy_(vec, non_blocking=True)
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(vec.device))
-        return keys, host, done
+        return keys, host, done, launched
 
     def fetch_aux(self, pending, section: str | None = "sync.aux") -> dict:
         """The counts of a pending record (post_aux) once its event has
         completed (a wait, timed as `section` when one is named): host
-        ints, and bools for the overflow flags."""
-        keys, host, done = pending
+        ints, and bools for the overflow flags. A frame launched while the
+        host-section profiler was on has them filed under its id with the
+        capacities it was launched with (hostprof.count_frame)."""
+        keys, host, done, launched = pending
         with _hprof(section) if section else contextlib.nullcontext():
             if done is not None:
                 done.synchronize()
             vals = host.tolist()
-        return {k: bool(v) if k.endswith("overflow") else int(v)
-                for k, v in zip(keys, vals)}
+        aux = {k: bool(v) if k.endswith("overflow") else int(v)
+               for k, v in zip(keys, vals)}
+        if launched is not None:
+            frame, capacity, proxy_capacity = launched
+            hostprof.count_frame(frame, capacity=capacity,
+                                 proxy_capacity=proxy_capacity, **aux)
+        return aux
 
     def absorb(self, aux: dict, budget=None) -> bool:
         """Grow the pair budgets from a frame's fetched counts (n_pairs into
@@ -1176,7 +1202,7 @@ class Renderer:
             binned, bg, depth_tiles, aux = self.front(
                 plan, camera, scene, rc, render_gs=render_gs,
                 use_skybox=use_skybox, use_proxy=use_proxy, sat_zimg=sat_zin)
-            with _hprof("render.back"):
+            with _hprof("render.back", self.device):
                 img = self.back(binned, bg, depth_tiles, use_proxy=use_proxy,
                                 emit_zcut=sat_zin is not None)
             if sat_zin is not None:

@@ -28,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 
 from .. import native
+from ..core import hostprof
 from ..core.config import (
     HeightMapType,
     SelectiveMergeType,
@@ -834,6 +835,11 @@ class WangTileEngine:
         stream_chunks_lod = []
         stream_pos = 0
         merged_rows = np.where(is_merged)[0]
+        # the merged-stream work, on the open section (stage.sort) while the
+        # host-section profiler is on: groups, LRU hits and misses, splats
+        # sorted exactly
+        hostprof.add(merged_groups=int(merged_rows.shape[0]), lru_hits=0,
+                     lru_misses=0, exact_splats=0)
         for row in merged_rows:
             mi = int(idx[row])
             mc = (int(mi_i[row]), int(mi_j[row]))
@@ -900,6 +906,7 @@ class WangTileEngine:
         cache_key = RenderDataKey(view_id, tuple(tids), tuple(statuses))
         if self.user_data.use_cache:
             hit = self.sort_lru_cache.get(cache_key)
+            hostprof.add(**{"lru_hits" if hit is not None else "lru_misses": 1})
             if hit is not None:
                 # Remap cached map ids to this frame's indices
                 # (wangtile.rs:578-590)
@@ -948,6 +955,7 @@ class WangTileEngine:
                 merge_offs.append(self.splats_merge_offset[other_lod, m_tile])
 
         concat = np.concatenate(depths)
+        hostprof.add(exact_splats=int(concat.shape[0]))
         displ = np.zeros(len(depths) + 1, np.int64)
         displ[1:] = np.cumsum([len(d) for d in depths])
         seg_id, idx = native.counting_sort_merge(concat, displ)

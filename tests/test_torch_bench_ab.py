@@ -18,7 +18,7 @@ from gswt_renderer_tpu.render.uniforms import SceneParams as JaxSceneParams
 from gswt_renderer_tpu.tiles import WangTileEngine as JaxWang
 from gswt_renderer_tpu_torch.benchmarks import (
     configs, cull_ab, depth_cull_ab, headline, inversion_ab, micro_background,
-    profile_frame, proxydiv_ab, quick_full, saturation, stage_times)
+    profile_frame, proxydiv_ab, quick_full, saturation)
 from gswt_renderer_tpu_torch.ops import raster
 
 SMALL = ["--device", "cpu", "--width", "64", "--height", "64", "--splats",
@@ -45,14 +45,6 @@ def test_profile_frame_times_and_profiles(tmp_path):
     assert res["device_ops"] == []  # no device on the CPU
     assert len(res["host_ops"]) == 5 and res["host_ops"][0][0] > 0
     assert (tmp_path / "frame_trace.json").stat().st_size > 0
-
-
-def test_stage_times_cumulate():
-    rows = stage_times.main(SMALL + ["-n", "2"])
-    for name in ("P", "PB", "PBR"):
-        _positive(rows[name]["wall"])
-        _positive(rows[name]["events"])
-    assert set(rows) == {"P", "PB", "PBR", "project", "binning", "raster"}
 
 
 def test_quick_full_ab():

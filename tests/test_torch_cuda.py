@@ -1285,3 +1285,60 @@ def test_server_streams_a_frame_jpg(cuda):
         assert not t.is_alive()
     finally:
         eng.shutdown()
+
+
+def test_span_log_on_the_card(cuda):
+    """The host-section profiler's span log on the card (core/hostprof.py):
+    every device-timed span starts on the device before it ends, each
+    section's span lies inside its frame's on the host's clock and on the
+    device's, and a planted .item() in a section no sync.* name covers
+    counts as the one hidden wait of the run."""
+    from gswt_renderer_tpu_torch.core import UserData, hostprof
+    from gswt_renderer_tpu_torch.core.config import SurfaceType
+    from gswt_renderer_tpu_torch.engine import Engine
+    from gswt_renderer_tpu_torch.io.synth import synthetic_scene_vec
+    from gswt_renderer_tpu_torch.render.pipeline import RendererConfig
+
+    eng = Engine(synthetic_scene_vec(n_lod=2, splats_per_tile=64),
+                 viewport=(128, 128),
+                 renderer_config=RendererConfig(width=128, height=128,
+                                                max_draws=64, chunk=128),
+                 synchronous=True, device=cuda)
+    eng.configure(UserData.from_ui(
+        tile_map_half_wh=(2, 2), lod_max_dist=8.0,
+        surface_type=SurfaceType.HEIGHT_MAP, height_map_wh=(4, 4),
+        height_map_scale=(1.0, 0.3)))
+    try:
+        assert eng.wait_ready(timeout_s=120)
+        eng.renderer.drain()
+        hostprof.set_host_prof(True)
+        try:
+            for _ in range(4):
+                eng.frame(readback=False)
+            with hostprof._hprof("planted"):
+                torch.ones(1, device=cuda).sum().item()
+            eng.renderer.drain()
+        finally:
+            hostprof.set_host_prof(False)
+    finally:
+        eng.shutdown()
+    tr = hostprof.trace()
+    assert tr.syncs_counted and tr.dropped == 0
+    frames = {s.frame: s for s in tr.spans if s.name == "frame"}
+    assert len(frames) == 4
+    timed = [s for s in tr.spans if s.device_start is not None]
+    assert {s.name for s in timed} >= {
+        "frame", "render.uniforms", "render.front.project",
+        "render.front.background", "render.front.bin", "render.back",
+        "render.aux"}
+    for s in timed:
+        assert s.device_start <= s.device_end, s
+        f = frames[s.frame]
+        assert f.host_start <= s.host_start <= s.host_end <= f.host_end, s
+        assert f.device_start <= s.device_start <= s.device_end <= f.device_end, s
+    assert [s.syncs for s in tr.spans if s.name == "planted"] == [1]
+    hidden = tr.unsectioned_syncs + sum(
+        s.syncs for s in tr.spans
+        if not (s.name.startswith("sync.") or s.name == "render.drain"))
+    assert hidden == 1, tr.sync_sites
+    assert torch.cuda.get_sync_debug_mode() == 0

@@ -23,7 +23,7 @@ FORBIDDEN = ("jax", "jaxlib", "gswt_renderer_tpu", "bench", "benchmarks",
              "quick_full", "cull_ab", "depth_cull_ab", "proxydiv_ab",
              "saturation", "configs", "micro_background", "inversion_ab")
 # the port's scripts that run the fixed-camera scene or the host profile
-NEW_SCRIPTS = ["profile_hostloop", "profile_frame", "stage_times",
+NEW_SCRIPTS = ["profile_hostloop", "profile_frame",
                "quick_full", "cull_ab", "depth_cull_ab", "proxydiv_ab",
                "saturation", "configs", "micro_background", "inversion_ab"]
 
