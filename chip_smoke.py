@@ -205,6 +205,91 @@ def _median_ms(torch, fn, windows: int = 7, reps: int = 10):
     return float(np.median(out)), out
 
 
+# the projection kernel against its plain version, on valid lanes: pixels
+# and extents within 1e-4 (plus 1e-4 relative for the extents), depth and
+# colour within 1e-6, k within 1e-3 of its scale max(|qa|, |qc|)
+# (tests/test_torch_project_cuda.py states why)
+PROJECT_TOL = dict(px=1e-4, unit=1e-6, k_rel=1e-3)
+# bytes a live lane reads (12 panel rows, or a merged lane's store index,
+# map id and 10 store rows) and every lane writes (12 rows and the mask)
+PROJECT_READ_B = 48
+PROJECT_WRITE_B = 12 * 4 + 1
+
+
+def phase_project(torch, eng, smi, dense_lanes: int = 1 << 22):
+    """[kernel] project (csrc/project.cu) against its plain version on the
+    fast frame's own inputs, at the 1080p frame's stream and at the dense
+    cell's (the plan's blocks repeated to `dense_lanes` lanes): valid equal
+    and the values within PROJECT_TOL; CUDA-event ms of the kernel and of
+    the plain version, and the byte bound (the live lanes' reads, every
+    lane's writes, the plan once). Returns the kernel's entry."""
+    from gswt_renderer_tpu_torch.ops import project
+
+    r = eng.renderer
+    plan = r.upload_plan(eng._staged)
+    scene_d, cam_d, lod_en, cdist, gs_en = r.frame_uniforms(
+        eng.camera, eng.scene_params, eng.render_config)
+    keep = project.cull_draws(plan["draw"], cam_d, cdist, lod_en)
+    kw = dict(surface_type=int(eng.scene_params.surface_type), draw_mode=0,
+              image_wh=(r.cfg.width, r.cfg.height), gs_enable=gs_en,
+              exact=r.cfg.exact, hm_src=r.hm_src)
+    if r.hm_src is None:
+        raise RuntimeError("[kernel] project: the fast frame has no source map")
+    entry, worst = None, 0.0
+    nb0 = plan["blocks"].shape[1]
+    for label, blocks in (
+            ("1080p frame", plan["blocks"]),
+            ("dense cell's stream", plan["blocks"].repeat(
+                1, -(-dense_lanes // (256 * nb0)))[:, :dense_lanes // 256]
+             .contiguous())):
+        args = (blocks, plan["merged"], r.panels, keep, r.store_packed,
+                scene_d, cam_d, r.hm4, r.height_map_wh)
+        got = project.assemble_and_project(*args, **kw)
+        want = project.assemble_and_project_plain(*args, **kw)
+        if not torch.equal(got["valid"], want["valid"]):
+            raise RuntimeError(f"[kernel] project {label}: the valid mask "
+                               f"differs on {int((got['valid'] != want['valid']).sum())} lanes")
+        v = want["valid"]
+        err = {k: float((got[k][v] - want[k][v]).abs().max())
+               for k in ("cx", "cy", "z")}
+        err["color"] = max(float((a - b).abs().max())
+                           for a, b in zip(got["color"], want["color"]))
+        err["ext"] = max(float(((got[k][v] - want[k][v]).abs()
+                                / (1.0 + want[k][v].abs())).max())
+                         for k in ("ext_x", "ext_y"))
+        scale = torch.maximum(want["q"][0][v].abs(), want["q"][2][v].abs())
+        err["k_rel"] = max(float(((a[v] - b[v]).abs() / scale).max())
+                           for a, b in zip(got["q"], want["q"]))
+        if not (max(err["cx"], err["cy"], err["ext"]) <= PROJECT_TOL["px"]
+                and max(err["z"], err["color"]) <= PROJECT_TOL["unit"]
+                and err["k_rel"] <= PROJECT_TOL["k_rel"]):
+            raise RuntimeError(f"[kernel] project {label}: {err}")
+        worst = max(worst, err["cx"], err["cy"])
+        s_n = blocks.shape[1] * 256
+        lane = torch.arange(256, device=blocks.device).repeat(blocks.shape[1])
+        live = int(((lane < blocks[3].repeat_interleave(256))
+                    & keep[blocks[4].long()].repeat_interleave(256)).sum())
+        bound_ms = (live * PROJECT_READ_B + s_n * PROJECT_WRITE_B
+                    + blocks.numel() * 4) / HBM_BYTES_PER_S * 1e3
+        ms, _ = _median_ms(torch, lambda: project.assemble_and_project(
+            *args, **kw), windows=5, reps=10)
+        plain_ms = _time_ms(torch, lambda: project.assemble_and_project_plain(
+            *args, **kw), 3)
+        print(f"[kernel] project {label}: {s_n} lanes ({live} live, "
+              f"{int(v.sum())} valid), against the plain version {err}; "
+              f"{ms:.4f} ms (plain {plain_ms:.4f}, bound {bound_ms:.4f} by "
+              f"bytes, {100 * bound_ms / ms:.1f}%) ({smi})")
+        if entry is None:
+            entry = dict(
+                name="project", route="cuda",
+                source="gswt_renderer_tpu_torch/csrc/project.cu",
+                replaces="none (XLA fusion in the JAX package)",
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes", library_ms=None)
+    entry["max_abs_err"] = worst
+    return entry
+
+
 def phase_oracle(torch, fi, img, exact, label, smi):
     """The card's gs-only frame `img` against the port's oracle rendered on
     the card from the same FrameInputs. Exact profile: tests/test_pipeline.py's
@@ -395,7 +480,7 @@ def phase_profile(torch, eng, fp, label, n: int = 4):
     # back-to-back wrapper calls, which for the sub-0.1 ms kernels is the
     # host's enqueue rate
     for e in kernels_:
-        if any(k in e.key for k in ("block_gather_kernel", "raster_kernel",
+        if any(k in e.key for k in ("project_kernel", "raster_kernel",
                                     "trirast_kernel", "trirast_fold_kernel",
                                     "bilinear_kernel",
                                     "mip_trilinear_kernel")):
@@ -577,7 +662,7 @@ def phase_scripts(need, per_frame):
         profile_frame, proxydiv_ab, quick_full, saturation)
     from gswt_renderer_tpu_torch.ops import kernels
 
-    splat = ("block_gather", "raster")
+    splat = ("project", "raster")
     background = ("bilinear", "trirast", "trirast_fold", "mip_trilinear")
 
     def run(name, fn, argv, names, frames):
@@ -676,7 +761,7 @@ def phase_parallel(torch, eng, need, label, *, gate, layers):
             break
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    need(launches, ("block_gather", "raster"), 4 * call, f"{label} segments")
+    need(launches, ("project", "raster"), 4 * call, f"{label} segments")
     need(launches, layers, call, f"{label} segmented frames")
     if "mip_trilinear" not in layers and launches.get("mip_trilinear", 0):
         raise RuntimeError(f"[parallel] {label}: mip_trilinear ran; this "
@@ -725,7 +810,7 @@ def phase_nccl(torch, eng, need):
         img = render_stream_sharded(r, staged, sp, cams[0], mesh, rc, **full)
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
-    need(launches, ("block_gather", "raster", "trirast", "bilinear"), 5,
+    need(launches, ("project", "raster", "trirast", "bilinear"), 5,
          "dp batch and sp frame")
     errs = []
     for i, c in enumerate(cams):
@@ -1170,7 +1255,7 @@ def main():
     kernels.LAUNCHES.clear()
     gs_run = drive(eng, N_FRAMES_GS, "exact gs-only")
     launches_gs = dict(kernels.LAUNCHES)
-    need(launches_gs, ("block_gather", "raster"), N_FRAMES_GS, "gs-only")
+    need(launches_gs, ("project", "raster"), N_FRAMES_GS, "gs-only")
     report("exact gs-only", gs_run, launches_gs)
 
     # the full config of bench.py: equirect skybox + checker proxy ground
@@ -1700,7 +1785,7 @@ def main():
     kernels.LAUNCHES.clear()
     exact_run = drive(eng, N_FRAMES_EXACT, "exact full-config")
     launches_exact = dict(kernels.LAUNCHES)
-    need(launches_exact, ("block_gather", "raster", "trirast", "trirast_fold",
+    need(launches_exact, ("project", "raster", "trirast", "trirast_fold",
                           "bilinear"),
          N_FRAMES_EXACT, "exact full-config")
     if launches_exact.get("mip_trilinear", 0):
@@ -1737,6 +1822,9 @@ def main():
     eng.set_skybox(sky, equirect=True)
     eng.set_proxy(checker)
     first_camera(eng)
+
+    # 4d. the projection kernel on the fast frame's own inputs
+    pj = phase_project(torch, eng, smi)
 
     # 4c. the compositor's fast variant, and fast + saturation-slot record,
     # on the fast frame's own pair table (quantized values) under its
@@ -1784,11 +1872,14 @@ def main():
     kernels.LAUNCHES.clear()
     fast_run = drive(eng, N_FRAMES, "fast full-config", alpha_share=0.02)
     launches = dict(kernels.LAUNCHES)
-    per_frame = ("block_gather", "raster", "trirast", "trirast_fold",
+    per_frame = ("project", "raster", "trirast", "trirast_fold",
                  "bilinear", "mip_trilinear")
     need(launches, per_frame, N_FRAMES, "fast full-config")
-    for k in (bg, tr, fd, bl, mp):
+    for k in (pj, tr, fd, bl, mp):
         k["launches"] = launches[k["name"]]
+    # the main path no longer copies the stream: block_gather has its own
+    # callers (the micro-benchmark, the plain projection)
+    bg["launches"] = launches.get("block_gather", 0)
     rf["launches"] = launches["raster"]
     report("fast full-config", fast_run, launches)
     print(f"[main] proxy pairs last frame "
@@ -2174,7 +2265,7 @@ def main():
     kernels.LAUNCHES.clear()
     ab = {row["variant"]: row for row in batched_ab.main(["-b", "4", "-n", "3"])}
     launches_ab = dict(kernels.LAUNCHES)
-    need(launches_ab, ("block_gather", "raster"), 4, "batched_ab")
+    need(launches_ab, ("project", "raster"), 4, "batched_ab")
     print(f"[bench] batched_ab, gs-only 1080p, fast profile: interactive "
           f"{ab['interactive']['ms_per_cam']:.2f} ms, batch of 4 identical "
           f"{ab['batch_same']['ms_per_cam']:.2f} ms/camera "
@@ -2212,7 +2303,7 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: d[k] for k in keys}
-                                  for d in [bg, rs, rf, rz, tr, fd, bl, mp]
+                                  for d in [bg, pj, rs, rf, rz, tr, fd, bl, mp]
                                   + new_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

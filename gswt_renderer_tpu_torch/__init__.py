@@ -9,8 +9,9 @@ its layout so each counterpart sits at the same path:
 - ``ops``       projection, skybox, proxy ground, binning and the compositor
                 on torch tensors; the Pallas kernels become CUDA kernels
                 under ``csrc/`` (``ops.blockgather``, ``ops.raster``,
-                ``ops.trirast``, ``ops.texsample``), each beside a plain
-                PyTorch version of the same function
+                ``ops.trirast``, ``ops.texsample``), and projection is one
+                (``ops.project``), each beside a plain PyTorch version of
+                the same function
 - ``render``    the per-frame pipeline (``Renderer``)
 - ``engine``    the session loop with its async builder thread (``Engine``)
 - ``parallel``  camera- and stream-parallel rendering over torch.distributed

@@ -27,7 +27,10 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 KERNELS = ("blockgather", "raster", "trirast", "bilinear", "miptrilinear",
-           "mergesorted", "micro_raster", "micro_blockgather")
+           "mergesorted", "micro_raster", "micro_blockgather", "project")
+# nvcc flags of single sources: projection keeps every multiply and add
+# rounded on its own, as its plain PyTorch version does (csrc/project.cu)
+_FLAGS = {"project": ("-fmad=false",)}
 
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -65,7 +68,7 @@ def _compile_cmd(name: str, out: str) -> list:
     return [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
         "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", out, os.path.join(CSRC, f"{name}.cu"),
+        *_FLAGS.get(name, ()), "-o", out, os.path.join(CSRC, f"{name}.cu"),
     ]
 
 

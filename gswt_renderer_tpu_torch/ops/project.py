@@ -3,8 +3,10 @@
 The reference issues one instanced draw per tile with per-instance u32
 streams (renderer.rs:466-591) and does all per-splat math in vs_main
 (gswt.wgsl:27-422). Here the whole frame's draws flatten into ONE splat
-stream, assembled on the device by one panel block-gather
-(ops/blockgather.py), and the vertex math runs vectorized over the stream.
+stream. On the card one kernel (csrc/project.cu) reads each lane's splat
+where it lies and projects it; on the CPU the plain version assembles the
+stream by one panel block-gather (ops/blockgather.py) and runs the vertex
+math vectorized over it.
 Semantics follow the JAX package's line for line, in the exact profile and
 (the height-map path of surface_mapping) the fast one; the NumPy oracle
 (refrender/oracle.py of the JAX package) is the test reference.
@@ -15,11 +17,13 @@ reversed lanes within each draw) so the compositor needs no flips.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
 import torch
 
+from . import kernels
 from .blockgather import BLOCK, block_gather
 
 GS_BITS = 26  # gs_index fits 26 bits (<= 67M splats); lod in bits 26..30
@@ -308,14 +312,148 @@ def merged_scratch(merged, store_packed, rows: int):
     ).contiguous()
 
 
+class _ProjectArgs(ctypes.Structure):
+    """csrc/project.cu's ProjectArgs."""
+    _fields_ = [
+        ("blocks", ctypes.c_void_p), ("nb", ctypes.c_longlong),
+        ("merged", ctypes.c_void_p), ("merged_cols", ctypes.c_longlong),
+        ("panels", ctypes.c_void_p), ("panel_cols", ctypes.c_longlong),
+        ("store", ctypes.c_void_p), ("store_cols", ctypes.c_longlong),
+        ("keep_draw", ctypes.c_void_p), ("n_draws", ctypes.c_longlong),
+        ("hm4", ctypes.c_void_p), ("hm_src", ctypes.c_void_p),
+        ("field", ctypes.c_void_p * 19),
+        ("out", ctypes.c_void_p), ("valid", ctypes.c_void_p),
+        ("plan_rows", ctypes.c_int), ("hm_w", ctypes.c_int),
+        ("hm_h", ctypes.c_int), ("src_w", ctypes.c_int),
+        ("src_h", ctypes.c_int), ("draw_mode", ctypes.c_int),
+        ("point_cloud", ctypes.c_int), ("img_w", ctypes.c_int),
+        ("img_h", ctypes.c_int),
+    ]
+
+
+# the kernel's output rows (csrc/project.cu Row): binning's stacking order
+ROWS = ("cx", "cy", "qa", "qb", "qc", "z", "r", "g", "b", "a", "ext_x",
+        "ext_y")
+
+# the scene and camera values the kernel reads on the device, in the order
+# of csrc/project.cu Field: (dict, key, dtype, words)
+_FIELDS = (
+    ("cam", "view", torch.float32, 16), ("cam", "proj_wgpu", torch.float32, 16),
+    ("cam", "focal", torch.float32, 2), ("cam", "htan_fov", torch.float32, 2),
+    ("cam", "cam_pos", torch.float32, 3),
+    ("scene", "splat_scale", torch.float32, 1),
+    ("scene", "tile_width", torch.float32, 1),
+    ("scene", "use_clip", torch.int32, 1),
+    ("scene", "clip_height", torch.float32, 1),
+    ("scene", "sphere_radius", torch.float32, 1),
+    ("scene", "point_cloud_radius", torch.float32, 1),
+    ("scene", "transition_width_ratio", torch.float32, 1),
+    ("scene", "num_lod", torch.int32, 1),
+    ("scene", "map_half_wh", torch.int32, 2),
+    ("scene", "center_coord", torch.int32, 2),
+    ("scene", "transition_dist_vec", torch.float32, 16),
+    ("scene", "height_map_scale", torch.float32, 3),
+    ("scene", "scene_scale", torch.float32, 3),
+)
+
+
+def _checked(t, dtype, dev, name, numel=None):
+    """t itself, after checking that it is a contiguous `dtype` tensor on
+    dev (of `numel` values when given): the kernel reads it in place."""
+    if (not torch.is_tensor(t) or t.dtype != dtype or t.device != dev
+            or not t.is_contiguous()
+            or (numel is not None and t.numel() != numel)):
+        raise ValueError(f"{name} must be a contiguous {dtype} tensor on {dev}"
+                         + ("" if numel is None else f" of {numel} values"))
+    return t
+
+
 def assemble_and_project(blocks, merged, panels, keep_draw, store_packed,
                          scene, cam, hm4, hm_wh, *, surface_type: int,
                          draw_mode: int, image_wh,
                          point_cloud: bool = False, gs_enable=None,
                          exact: bool = True, hm_src=None):
     """Assemble the front-to-back splat stream from 256-wide panels and
-    project it (vs_main math, gswt.wgsl:27-422). exact and hm_src select
-    the height-map path of surface_mapping; nothing else depends on them.
+    project it (vs_main math, gswt.wgsl:27-422); arguments and outputs as
+    assemble_and_project_plain. CPU tensors take the plain version; CUDA
+    tensors launch the one kernel of csrc/project.cu, whose outputs are row
+    views of one [12, S] tensor (ROWS) and which writes zeros on every lane
+    that is not valid."""
+    if not blocks.is_cuda:
+        return assemble_and_project_plain(
+            blocks, merged, panels, keep_draw, store_packed, scene, cam, hm4,
+            hm_wh, surface_type=surface_type, draw_mode=draw_mode,
+            image_wh=image_wh, point_cloud=point_cloud, gs_enable=gs_enable,
+            exact=exact, hm_src=hm_src)
+    dev = blocks.device
+    _checked(blocks, torch.int32, dev, "blocks")
+    rows, nb = blocks.shape
+    if rows not in (5, 6):
+        raise ValueError("blocks must be a [5 or 6, NB] plan")
+    _checked(merged, torch.int32, dev, "merged")
+    if merged.dim() != 2 or merged.shape[0] != 2:
+        raise ValueError("merged must be [2, M]")
+    for name, t, r in (("panels", panels, 12), ("store_packed", store_packed, 10)):
+        _checked(t, torch.float32, dev, name)
+        if t.dim() != 2 or t.shape[0] < r:
+            raise ValueError(f"{name} must be [>= {r}, N]")
+    if panels.shape[1] % BLOCK:
+        raise ValueError(f"panels' width must be a multiple of {BLOCK}")
+    _checked(keep_draw, torch.bool, dev, "keep_draw")
+    surface_type, draw_mode = int(surface_type), int(draw_mode)
+    if surface_type not in (0, 1, 2) or draw_mode not in range(5):
+        raise ValueError(f"surface_type {surface_type} or draw_mode "
+                         f"{draw_mode} unknown")
+    w, h = int(hm_wh[0]), int(hm_wh[1])
+    _checked(hm4, torch.float32, dev, "hm4", 4 * w * h)
+    height_path, src_h, src_w = 0, 1, 1
+    if surface_type == 1 and not exact:
+        height_path = 1
+        if hm_src is not None and tuple(hm_src.shape) != (1, 1):
+            height_path = 2
+            _checked(hm_src, torch.float32, dev, "hm_src")
+            src_h, src_w = hm_src.shape
+    dicts = dict(cam=cam, scene=scene)
+    fields = [_checked(dicts[d][k], dt, dev, k, n) for d, k, dt, n in _FIELDS]
+    if gs_enable is not None:
+        fields.append(_checked(gs_enable, torch.int32, dev, "gs_enable", 1))
+
+    s = nb * BLOCK
+    out = torch.empty((len(ROWS), s), dtype=torch.float32, device=dev)
+    valid = torch.empty(s, dtype=torch.bool, device=dev)
+    if nb:
+        args = _ProjectArgs(
+            blocks.data_ptr(), nb, merged.data_ptr(), merged.shape[1],
+            panels.data_ptr(), panels.shape[1], store_packed.data_ptr(),
+            store_packed.shape[1], keep_draw.data_ptr(), keep_draw.numel(),
+            hm4.data_ptr(), hm_src.data_ptr() if height_path == 2 else None,
+            (ctypes.c_void_p * 19)(*[t.data_ptr() for t in fields]),
+            out.data_ptr(), valid.data_ptr(), rows, w, h, src_w, src_h,
+            draw_mode, int(bool(point_cloud)), int(image_wh[0]),
+            int(image_wh[1]))
+        lib = kernels.load("project", gswt_project=[
+            ctypes.POINTER(_ProjectArgs), ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p])
+        rc = lib.gswt_project(ctypes.byref(args), surface_type, height_path,
+                              kernels.stream_ptr(out))
+        kernels.LAUNCHES["project"] += 1
+        kernels.check(rc, "project")
+    o = dict(zip(ROWS, out))
+    return dict(valid=valid, cx=o["cx"], cy=o["cy"], z=o["z"],
+                q=(o["qa"], o["qb"], o["qc"]),
+                color=(o["r"], o["g"], o["b"], o["a"]),
+                ext_x=o["ext_x"], ext_y=o["ext_y"])
+
+
+def assemble_and_project_plain(blocks, merged, panels, keep_draw,
+                               store_packed, scene, cam, hm4, hm_wh, *,
+                               surface_type: int, draw_mode: int, image_wh,
+                               point_cloud: bool = False, gs_enable=None,
+                               exact: bool = True, hm_src=None):
+    """Assemble the front-to-back splat stream from 256-wide panels and
+    project it (vs_main math, gswt.wgsl:27-422), in plain PyTorch: the CPU
+    path and the kernel's oracle. exact and hm_src select the height-map
+    path of surface_mapping; nothing else depends on them.
 
     The stream is a sequence of per-draw segments; every segment is a
     256-aligned contiguous slice of either `panels` (the materialized

@@ -1147,8 +1147,9 @@ def test_stream_segments_fold_at_1080p(bench_frame):
         if max(pairs) <= 1.5 * min(pairs):
             break
     launched = kernels.LAUNCHES - before
-    for name in ("block_gather", "raster"):
+    for name in ("project", "raster"):
         assert launched[name] == 4, launched
+    assert launched["block_gather"] == 0, launched
     for name in ("trirast", "bilinear"):
         assert launched[name] >= 1, launched
     diff = (img - ref).abs()
