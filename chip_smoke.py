@@ -8,7 +8,11 @@ Phases, each printing its own line; any failure raises (non-zero exit):
 2. build: every CUDA kernel of the main paths from csrc/ (eight sources, the
    compositor in eight compile-time variants, the micro-raster in twelve),
    one nvcc each, all at once, with each kernel's registers and spills;
-3. reference: small frames rendered on the card against the port's CPU
+3. ground: the port's grid ground at 1080p against the benchmark's plain
+   ground (gswt_bench/reference/background.py) at seven poses of its fly
+   path ([ground] lines: the share of the reference's ground pixels the
+   port misses, failing above 0.1%);
+   reference: small frames rendered on the card against the port's CPU
    path (the plain PyTorch versions the CPU tests hold against the JAX
    package): gs-only and with skybox + proxy, in the exact profile within
    the JAX parity budget and in the fast profile (the default) within the
@@ -413,6 +417,95 @@ def phase_reference(torch, smi):
                                              rs["cpu"].sat_zimg):
                 raise RuntimeError("the card's saturation-slot image is not "
                                    "the CPU path's")
+
+
+# the ground witness: the share of the pixels the plain ground hits that the
+# port's grid ground may miss at 1080p
+GROUND_MISS_SHARE = 1e-3
+GROUND_POSES_S = (0.0, 2.0, 4.5, 7.5, 10.0, 12.0, 14.5)
+
+
+def phase_ground(torch, smi):
+    """The port's grid ground (ops/proxy.py render_proxy, the fast profile's
+    half resolution, the triangle raster and mip sampler kernels) against
+    the benchmark's plain ground (gswt_bench/reference/background.py: each
+    pixel's ray marched to the stated mesh) at 1920x1080 on the paper's map,
+    at poses of the benchmark's fly path ([ground] lines): the pixels the
+    reference hits and the port misses, as a share of those and of all,
+    and the ones the port alone hits. Fails above GROUND_MISS_SHARE."""
+    from gswt_bench.frozen.scene import bench_textures, mirrored_pose
+    from gswt_bench.reference import background, camera as rcam, store
+    from gswt_renderer_tpu_torch.core import Camera, UserData
+    from gswt_renderer_tpu_torch.core.camera import CameraUniforms
+    from gswt_renderer_tpu_torch.core.config import RenderConfig, SurfaceType
+    from gswt_renderer_tpu_torch.io.textures import build_mip_chain
+    from gswt_renderer_tpu_torch.ops import proxy
+    from gswt_renderer_tpu_torch.ops.project import pack_tex4
+    from gswt_renderer_tpu_torch.ops.texsample import (
+        pack_pyramid, sampler_pyramid)
+    from gswt_renderer_tpu_torch.render.pipeline import PROXY_CHUNK, Renderer
+    from gswt_renderer_tpu_torch.render.uniforms import SceneParams
+
+    w, h, half, tw = 1920, 1080, 48, 4.0
+    dev = torch.device("cuda")
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "gswt_bench", "traffic", "still.json")) as f:
+        keys = json.load(f)["keyframes"]
+    hm, hm_wh = store.height_map((10, 10), tw, 0.3)
+    _, checker = bench_textures()
+    mips = build_mip_chain(np.asarray(checker, np.float32))
+    atlas, meta = proxy.pack_mip_atlas(mips)
+    pyr, pyr_meta, l_min = pack_pyramid(mips)
+    verts, tris = proxy.make_map_grid((2 * half + 1,) * 2, (half, half), tw)
+    prox = dict(atlas=proxy.atlas_words(atlas).to(dev),
+                mip_tab=proxy.mip_table(meta, dev),
+                pyr=sampler_pyramid(torch.as_tensor(pyr).to(dev).to(torch.bfloat16)),
+                verts=torch.as_tensor(verts).to(dev),
+                tris=torch.as_tensor(tris).to(dev))
+    hm4 = torch.as_tensor(pack_tex4(hm, *hm_wh)).to(dev)
+    ud = UserData.from_ui(tile_map_half_wh=(half, half), tile_width=tw,
+                          surface_type=SurfaceType.HEIGHT_MAP,
+                          height_map_wh=(10, 10), height_map_scale=(1.0, 0.3))
+    pyramid = background.mip_pyramid(checker)
+    worst = 0.0
+    for t in GROUND_POSES_S:
+        pos, tgt = mirrored_pose(keys, t)
+        cc = tuple(int(c) for c in np.floor(pos[:2] / tw))
+        cam = Camera((w, h), pos, tgt, (0, 0, 1), np.deg2rad(rcam.FOVY_DEG),
+                     rcam.Z_NEAR, rcam.Z_FAR)
+        uni = Renderer.pack_frame_uniforms(
+            SceneParams.from_data(ud, cc, RenderConfig()), CameraUniforms(cam),
+            [True], 1.0)
+        scene_d, cam_d, *_ = Renderer.unpack_frame_uniforms(
+            torch.as_tensor(uni).to(dev))
+        _, _, hit, aux = proxy.render_proxy(
+            cam_d, scene_d, (w // 2, h // 2), hm4, hm_wh, prox,
+            (meta[0][0], meta[0][1]), surface_type=1,
+            height_offset=background.PROXY_HEIGHT, brightness=1.0,
+            black_background=False, use_clip=False, clip_height=0.0,
+            mip_meta=meta, mip_pyr=(pyr_meta, l_min), tile_wh=(64, 32),
+            chunk=PROXY_CHUNK, proxy_pairs=1 << 20)
+        scene = dict(map_half_wh=(half, half), tile_width=tw,
+                     height_map_scale=np.array([1.0, 1.0, 0.3], np.float32),
+                     center_coord=cc)
+        ref = background.proxy(rcam.camera(pos, tgt, w, h), scene,
+                               torch.as_tensor(hm).to(dev), hm_wh, pyramid,
+                               w, h, dev)[2][::2, ::2]
+        miss = int((ref & ~hit).sum())
+        extra = int((hit & ~ref).sum())
+        n_ref = int(ref.sum())
+        share = miss / max(n_ref, 1)
+        worst = max(worst, share)
+        print(f"[ground] t {t:4.1f} s, 960x540 ground of the 1080p frame: "
+              f"reference hits {n_ref}, port misses {miss} ({share:.4%} of "
+              f"those, {miss / hit.numel():.4%} of all), port alone hits "
+              f"{extra}, pairs {int(aux['proxy_pairs'])}, overflow "
+              f"{bool(aux['proxy_overflow'])} | {smi}")
+        if bool(aux["proxy_overflow"]):
+            raise RuntimeError("the ground witness overflowed its pair slots")
+    if worst > GROUND_MISS_SHARE:
+        raise RuntimeError(f"the port's ground misses {worst:.4%} of the "
+                           f"reference ground's pixels")
 
 
 def phase_profile(torch, eng, fp, label, n: int = 4):
@@ -1008,7 +1101,8 @@ def main():
             elif "registers" in line or "spill" in line:
                 print(f"[build] {name} {entry}: {line.strip()}")
 
-    # 3. reference on a small input
+    # 3. the ground against the benchmark's; the reference on a small input
+    phase_ground(torch, smi)
     phase_reference(torch, smi)
 
     # the bench scene at 1080p through Engine

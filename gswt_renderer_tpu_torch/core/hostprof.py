@@ -46,7 +46,10 @@ While on (``set_host_prof(True)``):
   thread (a sort's merge work), ``annotate`` sets counters on a section's
   span after it has closed (``_hprof.span()``: the frame that first drew a
   sort); ``count_frame`` files a frame's counts under its id once the
-  render thread has read them back (``Renderer._drain_one`` / ``exactly``).
+  render thread has read them back (``Renderer._drain_one`` / ``exactly``):
+  the pair demands and capacities, and the proxy grid's
+  ``proxy_tris_live`` and ``proxy_tris_thin`` (``ops/proxy.py
+  grid_counts``, computed only while on).
   ``benchmarks/profile_hostloop.py`` reads the builder's counters and the
   frames' pair counts; ``gswt_bench/metrics`` the rest.
 
@@ -56,7 +59,9 @@ The frame's sections (``render/pipeline.py``, ``engine/engine.py``,
 ``stage.sort``, ``stage.plan``, ``stage.prep`` (on the builder thread when
 the Engine has one); ``render.sat_cut``, ``render.uniforms``,
 ``render.plan``, ``render.front.project``, ``.background``, ``.skybox``,
-``.proxy``, ``.bin``, ``render.back``, ``render.aux``, ``render.drain``; and
+``.proxy`` (with ``.proxy.raster``: the ground's triangle planes, raster and
+maps; ``.proxy.shade``: its footprint, mip sampling and colour), ``.bin``,
+``render.back``, ``render.aux``, ``render.drain``; and
 one ``sync.<where>`` for each call on the frame path that waits for the
 device: a read of a device value on the host, or a copy to the device from
 pageable host memory, which PyTorch makes synchronous. ``frame`` and the

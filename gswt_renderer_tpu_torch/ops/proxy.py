@@ -8,17 +8,19 @@ depth-tests against the result (renderer.rs:433-437). Fragments sample the
 proxy texture's Lanczos mip chain with a trilinear Repeat sampler
 (proxy.rs:324-338).
 
-This version (hybrid, as in the JAX package):
-- the tile-map grid is RASTERIZED exactly: vertex heights sampled from the
-  same bilinear field at mip 0, screen-space linear depth, perspective-
-  correct tex coords, min-z semantics (ops/trirast.py);
-- pixels the map grid does not cover (the far field the reference's 2048^2
-  grid provides, plus near triangles dropped by whole-triangle near-plane
-  clipping) fall back to a per-pixel ray / height-field intersection
-  against the same repeating height field -- the piecewise-linear-grid vs
-  exact-surface difference only remains in this far field (PARITY.md #4);
-- both paths sample the mip chain trilinearly with a footprint from
-  screen-space uv derivatives, matching the reference's sampler.
+This version has two paths (render_proxy's use_grid):
+- the grid (the default and the main path): the tile-map grid and the
+  clipmap rings around it standing in for the reference's far grid
+  (make_map_grid, PARITY.md #4) are RASTERIZED: vertex heights sampled from
+  the same bilinear field at mip 0, screen-space linear depth, perspective-
+  correct tex coords, min-z semantics (ops/trirast.py). A triangle with a
+  vertex behind the camera is dropped whole; nothing else stands in for
+  it, and at a viewer's height above the ground no such triangle reaches
+  the view;
+- the march: a per-pixel ray / height-field intersection against the same
+  repeating height field;
+- both sample the mip chain trilinearly with a footprint from screen-space
+  uv derivatives, matching the reference's sampler.
 
 Outputs: color [H,W,4] and the wgpu-remapped depth [H,W] consumed by the
 splat rasterizer's per-splat depth test.
@@ -29,10 +31,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core import hostprof
+from ..core.hostprof import _hprof
 from .project import _bilinear_wrap4
 from .skybox import pixel_rays
 from .texsample import factored_mip_trilinear
-from .trirast import rasterize_triangles, tiles_to_maps, triangle_planes
+from .trirast import (on_image, rasterize_triangles, tiles_to_maps,
+                      triangle_planes)
 
 
 # ------------------------------------------------------------------ #
@@ -277,15 +282,31 @@ def map_grid_planes(cam, scene, image_wh, hm4, hm_wh, verts, tris,
     )
 
 
+def grid_counts(planes, ok, bbox, image_wh):
+    """The grid's triangle counts as 0-d tensors: proxy_tris_live, those
+    that reach the rasterizer (kept by triangle_planes, their box on the
+    image), and proxy_tris_thin, the live ones of under one pixel of area
+    (|area2| < 2; the b0 and b1 gradients' cross product is 1 / area2),
+    whose depth their plane rows hold only when solved from the differences
+    to a vertex (triangle_planes)."""
+    live = ok & on_image(bbox, image_wh)
+    inv_area2 = planes[0] * planes[4] - planes[1] * planes[3]
+    return dict(proxy_tris_live=live.sum(),
+                proxy_tris_thin=(live & (inv_area2.abs() > 0.5)).sum())
+
+
 def raster_map_grid(cam, scene, image_wh, hm4, hm_wh, verts, tris,
                     *, surface_type: int, height_offset: float,
-                    tile_wh, chunk: int, capacity: int):
+                    tile_wh, chunk: int, capacity: int, counts=None):
     """Rasterize the displaced tile-map grid into `capacity` pair slots
     (ops/trirast.py rasterize_triangles). Returns (z [H,W] wgpu depth,
-    u, v, mapped_h [H,W], hit [H,W], n_pairs, overflow)."""
+    u, v, mapped_h [H,W], hit [H,W], n_pairs, overflow); with `counts` (a
+    dict) also adds grid_counts' to it."""
     planes, ok, bbox = map_grid_planes(
         cam, scene, image_wh, hm4, hm_wh, verts, tris,
         surface_type=surface_type, height_offset=height_offset)
+    if counts is not None:
+        counts.update(grid_counts(planes, ok, bbox, image_wh))
     rast = rasterize_triangles(
         planes, bbox, ok, image_wh=image_wh, tile_wh=tile_wh, chunk=chunk,
         capacity=capacity,
@@ -382,27 +403,36 @@ def render_proxy(
     use_grid: bool = True, n_steps: int = 96, max_dist: float = 2400.0,
     proxy_pairs: int,
 ):
-    """Hybrid proxy pass. proxy: dict(atlas [4, total] int32 words, mip_tab:
+    """The proxy pass. proxy: dict(atlas [4, total] int32 words, mip_tab:
     the levels' (w, h, off) as mip_table made it on the atlas's device,
     verts [2, Nv], tris [3, T], optional pyr: the packed rgb pyramid as
     texsample.sampler_pyramid lays it out on its device) with mip_meta the
     per-level (w, h, off) tuple. proxy_pairs: the grid raster's pair slots
     (ops/trirast.py rasterize_triangles); aux holds proxy_pairs, the
-    demand, and proxy_overflow. When mip_pyr (the (meta, l_min) from
+    demand, and proxy_overflow, and on the grid path while the host-section
+    profiler is on the triangle counts of grid_counts (a few launches, so
+    only then).
+    The grid's raster is the section render.front.proxy.raster, the
+    footprint, mip sampling and colour render.front.proxy.shade. When
+    mip_pyr (the (meta, l_min) from
     texsample.pack_pyramid) is given and proxy carries the packed pyramid
     planes, mip sampling goes through the pyramid kernel (fast profile;
     levels finer than l_min clamp -- documented in PARITY.md); otherwise
     the per-pixel trilinear atlas path runs (exact).
     Returns (color [H,W,4], depth [H,W] wgpu clip z, hit [H,W], aux)."""
     w_img, h_img = image_wh
+    dev = hm4.device
     if use_grid:
         # map grid + far clipmap rings rasterized together
-        z, u, v, mh, hit, npx, ovf = raster_map_grid(
-            cam, scene, image_wh, hm4, hm_wh, proxy["verts"], proxy["tris"],
-            surface_type=surface_type, height_offset=height_offset,
-            tile_wh=tile_wh, chunk=chunk, capacity=proxy_pairs,
-        )
-        aux = dict(proxy_pairs=npx, proxy_overflow=ovf)
+        counts = {} if hostprof._PROF_ON else None
+        with _hprof("render.front.proxy.raster", dev):
+            z, u, v, mh, hit, npx, ovf = raster_map_grid(
+                cam, scene, image_wh, hm4, hm_wh, proxy["verts"],
+                proxy["tris"], surface_type=surface_type,
+                height_offset=height_offset, tile_wh=tile_wh, chunk=chunk,
+                capacity=proxy_pairs, counts=counts,
+            )
+        aux = dict(proxy_pairs=npx, proxy_overflow=ovf, **(counts or {}))
     else:
         z, u, v, mh, hit = march_height_field(
             cam, scene, image_wh, hm4, hm_wh,
@@ -412,29 +442,30 @@ def render_proxy(
         zero = torch.zeros((), dtype=torch.int64, device=z.device)
         aux = dict(proxy_pairs=zero, proxy_overflow=zero > 0)
 
-    # fragment clip discard (proxy.wgsl:100-102)
-    if use_clip:
-        hit = hit & ~(mh < clip_height)
-    depth = torch.where(hit, z, 1.0)
+    with _hprof("render.front.proxy.shade", dev):
+        # fragment clip discard (proxy.wgsl:100-102)
+        if use_clip:
+            hit = hit & ~(mh < clip_height)
+        depth = torch.where(hit, z, 1.0)
 
-    if black_background:
-        rgb = torch.zeros((h_img, w_img, 3), dtype=torch.float32,
-                          device=z.device)
-    else:
-        meta = mip_meta or ((int(proxy_wh[0]), int(proxy_wh[1]), 0),)
-        rho = _uv_footprint(u, v, float(meta[0][0]), float(meta[0][1]))
-        if mip_pyr is not None and proxy.get("pyr") is not None:
-            pyr_meta, l_min = mip_pyr
-            rgb = factored_mip_trilinear(
-                proxy["pyr"], pyr_meta, l_min, u, v, rho, n_ch=3,
-            ).permute(1, 2, 0)
+        if black_background:
+            rgb = torch.zeros((h_img, w_img, 3), dtype=torch.float32,
+                              device=z.device)
         else:
-            rgb = sample_mip_trilinear(proxy["atlas"], proxy["mip_tab"], u,
-                                       v, rho)
-        rgb = rgb * brightness
-    color = torch.cat(
-        [rgb, torch.ones((h_img, w_img, 1), dtype=torch.float32,
-                         device=z.device)], dim=-1
-    )
-    color = torch.where(hit[..., None], color, 0.0)
+            meta = mip_meta or ((int(proxy_wh[0]), int(proxy_wh[1]), 0),)
+            rho = _uv_footprint(u, v, float(meta[0][0]), float(meta[0][1]))
+            if mip_pyr is not None and proxy.get("pyr") is not None:
+                pyr_meta, l_min = mip_pyr
+                rgb = factored_mip_trilinear(
+                    proxy["pyr"], pyr_meta, l_min, u, v, rho, n_ch=3,
+                ).permute(1, 2, 0)
+            else:
+                rgb = sample_mip_trilinear(proxy["atlas"], proxy["mip_tab"],
+                                           u, v, rho)
+            rgb = rgb * brightness
+        color = torch.cat(
+            [rgb, torch.ones((h_img, w_img, 1), dtype=torch.float32,
+                             device=z.device)], dim=-1
+        )
+        color = torch.where(hit[..., None], color, 0.0)
     return color, depth, hit, aux

@@ -63,50 +63,46 @@ def triangle_planes(xs, ys, zs, ws, attrs, valid):
     clip w; attrs: [A<=3, 3, T] per-vertex attributes (perspective-correct).
     Returns (planes [24, T] f32 rows grouped per plane (a, b, c), valid [T],
     bbox (x0f, x1f, y0f, y1f) float pixel bounds).
-    Triangles with any vertex behind the near plane (w <= eps) are dropped
-    (the GPU would clip them; ops/proxy.py's far-field fallback covers the
-    resulting holes).
+
+    Each plane is solved from the differences to vertex 0 (its gradient from
+    f1 - f0 and f2 - f0 over the edge vectors, then c = f0 - a x0 - b y0),
+    so a large or thin far triangle keeps its depth: from the vertices'
+    absolute coordinates, c would sum products of pixel coordinates that
+    cancel, and its float32 rounding over a sub-pixel area lifts a depth
+    just below the far plane past 1.
+    Triangles with any vertex behind the camera (w <= eps) or of no area
+    are dropped whole, not clipped: the stated ground mesh (PARITY.md #4)
+    covers no pixel with them.
     """
-    x0, x1t, x2 = xs[0], xs[1], xs[2]
-    y0, y1t, y2 = ys[0], ys[1], ys[2]
-    area2 = (x1t - x0) * (y2 - y0) - (x2 - x0) * (y1t - y0)
+    x0, y0 = xs[0], ys[0]
+    dx1, dy1 = xs[1] - x0, ys[1] - y0
+    dx2, dy2 = xs[2] - x0, ys[2] - y0
+    area2 = dx1 * dy2 - dx2 * dy1
     eps_w = 1e-6
     ok = valid & (ws[0] > eps_w) & (ws[1] > eps_w) & (ws[2] > eps_w)
     ok = ok & (torch.abs(area2) > 1e-12)
     inv_a = torch.where(ok, 1.0 / torch.where(area2 == 0, 1.0, area2), 0.0)
-
-    def plane(f0, f1, f2):
-        # linear interpolant f(x, y) = a x + b y + c through the 3 vertices
-        a = (f0 * (y1t - y2) + f1 * (y2 - y0) + f2 * (y0 - y1t)) * inv_a
-        b = (f0 * (x2 - x1t) + f1 * (x0 - x2) + f2 * (x1t - x0)) * inv_a
-        c = (
-            f0 * (x1t * y2 - x2 * y1t)
-            + f1 * (x2 * y0 - x0 * y2)
-            + f2 * (x0 * y1t - x1t * y0)
-        ) * inv_a
-        return [a, b, c]
-
-    one = torch.ones_like(x0)
-    zero = torch.zeros_like(x0)
     invw = torch.where(ok, 1.0 / torch.where(ws <= eps_w, 1.0, ws), 0.0)
-    planes = []
-    planes += plane(one, zero, zero)   # b0
-    planes += plane(zero, one, zero)   # b1
-    planes += plane(zero, zero, one)   # b2
-    planes += plane(zs[0], zs[1], zs[2])
-    planes += plane(invw[0], invw[1], invw[2])
-    for k in range(3):
-        if attrs is not None and k < attrs.shape[0]:
-            f = attrs[k] * invw
-            planes += plane(f[0], f[1], f[2])
-        else:
-            planes += [zero, zero, zero]
-    stacked = torch.stack(planes, dim=0)  # [24, T]
-    bx0 = torch.minimum(torch.minimum(x0, x1t), x2)
-    bx1 = torch.maximum(torch.maximum(x0, x1t), x2)
-    by0 = torch.minimum(torch.minimum(y0, y1t), y2)
-    by1 = torch.maximum(torch.maximum(y0, y1t), y2)
-    return stacked, ok, (bx0, bx1, by0, by1)
+    # the vertex values of the planes, [P, 3, T]: b0, b1, b2, z, 1/w, and
+    # each attribute over w
+    eye = torch.eye(3, dtype=xs.dtype, device=xs.device)[:, :, None]
+    fs = [eye.expand(3, 3, xs.shape[1]), zs[None], invw[None]]
+    if attrs is not None:
+        fs.append(attrs[:3] * invw)
+    f = torch.cat(fs)
+    df1, df2 = f[:, 1] - f[:, 0], f[:, 2] - f[:, 0]
+    a = (df1 * dy2 - df2 * dy1) * inv_a
+    b = (df2 * dx1 - df1 * dx2) * inv_a
+    c = torch.where(ok, f[:, 0] - a * x0 - b * y0, 0.0)
+    rows = torch.stack([a, b, c], dim=1).reshape(-1, xs.shape[1])
+    planes = torch.zeros((N_ROWS, xs.shape[1]), dtype=rows.dtype,
+                         device=rows.device)
+    planes[:rows.shape[0]] = rows
+    bx0 = torch.minimum(torch.minimum(xs[0], xs[1]), xs[2])
+    bx1 = torch.maximum(torch.maximum(xs[0], xs[1]), xs[2])
+    by0 = torch.minimum(torch.minimum(ys[0], ys[1]), ys[2])
+    by1 = torch.maximum(torch.maximum(ys[0], ys[1]), ys[2])
+    return planes, ok, (bx0, bx1, by0, by1)
 
 
 def _far_tiles(n_tiles, p_n, device):
@@ -453,6 +449,13 @@ def rasterize_pair_rows(rows, range_start, range_end, *, image_wh, tile_wh,
     return out
 
 
+def on_image(bbox, image_wh):
+    """[T] bool: the triangles whose pixel box (triangle_planes' bbox)
+    meets the image."""
+    bx0, bx1, by0, by1 = bbox
+    return (bx1 >= 0) & (bx0 < image_wh[0]) & (by1 >= 0) & (by0 < image_wh[1])
+
+
 def bin_triangles(planes, bbox, ok, *, image_wh, tile_wh, capacity: int,
                   return_index: bool = False):
     """Expand triangles into (tile, triangle) pairs in `capacity` slots
@@ -461,7 +464,6 @@ def bin_triangles(planes, bbox, ok, *, image_wh, tile_wh, capacity: int,
     inside a tile, the dead slots last). Returns (rows [24, capacity], range_start,
     range_end [n_tiles] i32, n_pairs: the demand, a 0-d tensor), and with
     return_index also the slots' (tile, triangle) indices [capacity] i64."""
-    w_img, h_img = image_wh
     tw, th = tile_wh
     ntx, nty, n_tiles = grid_dims(image_wh, tile_wh)
     bx0, bx1, by0, by1 = bbox
@@ -471,9 +473,9 @@ def bin_triangles(planes, bbox, ok, *, image_wh, tile_wh, capacity: int,
     x1 = torch.clamp(torch.floor(bx1 / tw), 0, ntx - 1).long()
     y0 = torch.clamp(torch.floor(by0 / th), 0, nty - 1).long()
     y1 = torch.clamp(torch.floor(by1 / th), 0, nty - 1).long()
-    onscreen = (bx1 >= 0) & (bx0 < w_img) & (by1 >= 0) & (by0 < h_img)
     sorted_key, sorted_tri, total, _ = expand_bboxes(
-        x0, x1, y0, y1, ok & onscreen, ntx=ntx, n_tiles=n_tiles,
+        x0, x1, y0, y1, ok & on_image(bbox, image_wh), ntx=ntx,
+        n_tiles=n_tiles,
         capacity=capacity)
     rows = planes[:, sorted_tri].contiguous()  # [24, n_pairs]
     range_start, range_end = tile_ranges(sorted_key, n_tiles)

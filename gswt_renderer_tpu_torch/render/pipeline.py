@@ -45,10 +45,11 @@ gswt.render.front.skybox, gswt.render.front.proxy, gswt.render.front.bin,
 gswt.render.back, ...; chip_smoke.py's profile phase reads them); the
 render thread's sections that launch device work (render.sat_cut,
 render.uniforms, render.plan, render.front.project, .background, .skybox,
-.proxy, .bin, render.back, render.aux) also take a device start and end;
-and each frame's pair demand and the capacity its expansions were launched
-with are filed under its frame id once its counts are read back (_drain_one,
-exactly). Every launch of a frame falls inside one of them.
+.proxy with its .proxy.raster and .proxy.shade, .bin, render.back,
+render.aux) also take a device start and end; and each frame's pair demand,
+the capacity its expansions were launched with and the proxy grid's
+triangle counts are filed under its frame id once its counts are read back
+(_drain_one, exactly). Every launch of a frame falls inside one of them.
 """
 
 from __future__ import annotations
@@ -97,9 +98,10 @@ SEED_PAIRS_PER_TRIANGLE = 2.0
 # the proxy raster's pair chunk (ops/trirast.py)
 PROXY_CHUNK = 128
 # the frame counts a frame reads back (its aux), in the order of the host
-# vector
+# vector; the proxy grid's triangle counts only while the host-section
+# profiler is on (ops/proxy.py grid_counts)
 AUX_KEYS = ("n_pairs", "n_pairs_kept", "n_live", "overflow", "proxy_pairs",
-            "proxy_overflow")
+            "proxy_overflow", "proxy_tris_live", "proxy_tris_thin")
 # a byte offset every array of an uploaded plan starts at a multiple of
 _PLAN_ALIGN = 256
 

@@ -3,6 +3,8 @@
 counters two of them report held against the JAX Renderer and against the
 plain compositor."""
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -12,6 +14,8 @@ from gswt_renderer_tpu.core import UserData as JaxUserData
 from gswt_renderer_tpu.core.config import RenderConfig as JaxRenderConfig
 from gswt_renderer_tpu.core.config import SurfaceType as JaxSurfaceType
 from gswt_renderer_tpu.io.synth import synthetic_scene_vec as jax_synth
+from gswt_renderer_tpu.ops import proxy as jax_proxy
+from gswt_renderer_tpu.ops import trirast as jax_trirast
 from gswt_renderer_tpu.render.pipeline import Renderer as JaxRenderer
 from gswt_renderer_tpu.render.pipeline import RendererConfig as JaxConfig
 from gswt_renderer_tpu.render.uniforms import SceneParams as JaxSceneParams
@@ -162,16 +166,42 @@ def _jax_aux(dc, wh):
             for k in ("n_pairs", "n_pairs_kept", "n_live")}
 
 
-def test_depth_cull_ab_counts_the_pairs_the_jax_renderer_counts():
+def _planes_in_float64(xs, ys, zs, ws, attrs, valid):
+    """The JAX package's triangle_planes with its rows evaluated in float64
+    on the same float32 vertices, rounded once to float32."""
+    def rows(*args):
+        with jax.enable_x64(True):
+            planes, _, _ = jax_trirast.triangle_planes(
+                *(jnp.asarray(np.asarray(a, np.float64)) for a in args[:5]),
+                jnp.asarray(args[5]))
+        return np.asarray(planes, np.float32)
+
+    _, ok, bbox = jax_trirast.triangle_planes(xs, ys, zs, ws, attrs, valid)
+    planes = jax.pure_callback(
+        rows, jax.ShapeDtypeStruct((24, xs.shape[1]), jnp.float32),
+        xs, ys, zs, ws, attrs, valid)
+    return planes, ok, bbox
+
+
+def test_depth_cull_ab_counts_the_pairs_the_jax_renderer_counts(monkeypatch):
     """At 128x128: at 64x64 the frame's two 64x32 tiles both reach the sky
-    (depth 1), so the cull has nothing to drop."""
+    (depth 1), so the cull has nothing to drop. The JAX package's ground
+    rows sum products of absolute pixel coordinates in float32, and the
+    depth they give is off by more than a splat's distance from the ground
+    for a few pairs; with its rows evaluated in float64, the JAX renderer
+    keeps exactly the port's pairs."""
     res = depth_cull_ab.main(SMALL[:2] + ["--width", "128", "--height", "128"]
                              + SMALL[6:] + ["-n", "2"])
     for side, dc in (("off", False), ("on", True)):
         _positive(res[side]["frame_ms"])
+    jax_f32 = _jax_aux(True, (128, 128))
+    monkeypatch.setattr(jax_proxy, "triangle_planes", _planes_in_float64)
+    for side, dc in (("off", False), ("on", True)):
         jax_aux = _jax_aux(dc, (128, 128))
         for k in ("n_pairs", "n_pairs_kept", "n_live"):
             assert res[side][k] == jax_aux[k], (side, k, res[side], jax_aux)
+    # the float32 rows move the cull by a few pairs, no more
+    assert 0 <= jax_f32["n_pairs_kept"] - res["on"]["n_pairs_kept"] <= 4
     assert res["on"]["n_pairs_kept"] < res["off"]["n_pairs_kept"]
     assert res["speedup"] > 0
 
