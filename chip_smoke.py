@@ -294,6 +294,121 @@ def phase_project(torch, eng, smi, dense_lanes: int = 1 << 22):
     return entry
 
 
+# the binning kernel against its plain version on the kept pairs
+# (tests/test_torch_binning_cuda.py states why): ranges, counts and rows 6-10
+# and 12 equal; each k row (0-5) within 1e-5 of its largest |value|; ln a
+# (row 11) within 3e-7 relative, -inf where the plain version has it
+BIN_TOL = dict(k_rel=1e-5, ln_a_rel=3e-7)
+# bytes the binning kernel must move at the least: a live lane's 12 projected
+# rows and its mask, an off-screen valid lane's cx, cy, ext_x, ext_y and
+# mask, an invalid lane's mask, each read once; each kept pair's 13 table
+# rows written once, the dead code (rows 5 and 11) of every slot past the
+# runs, the two ranges
+BIN_LIVE_B = 12 * 4 + 1
+BIN_OFF_B = 4 * 4 + 1
+BIN_VOID_B = 1
+BIN_KEPT_B = 13 * 4
+BIN_DEAD_B = 2 * 4
+BIN_TILE_B = 2 * 4
+
+
+def phase_binning(torch, eng, smi, dense_lanes: int = 1 << 22):
+    """[binning] the binning kernel (csrc/binning.cu) against its plain
+    version on the fast 1080p frame's projected stream (the sky still's
+    scene) and on the dense cell's (the plan's blocks repeated to
+    `dense_lanes` lanes),
+    at a capacity of 1.5x the demand as the pair budget keeps it. Raises
+    unless ranges, counts, the runs (row 12) and rows 6-10 are equal, the k
+    rows and ln a are within BIN_TOL and every slot past the runs has the
+    dead code; prints the largest difference of each row group and the
+    CUDA-event ms of the kernel and of the plain version beside the byte
+    bound. Returns the kernel's entry."""
+    from gswt_renderer_tpu_torch.ops import binning
+
+    r = eng.renderer
+    c = r.cfg
+    plan = r.upload_plan(eng._staged)
+    unpacked = r.frame_uniforms(eng.camera, eng.scene_params,
+                                eng.render_config)
+    kw = dict(image_wh=(c.width, c.height), tile_wh=(c.tile_w, c.tile_h),
+              chunk=c.chunk, exact=c.exact, cull_exact=c.cull_exact)
+    n_tiles = binning.grid_dims(kw["image_wh"], kw["tile_wh"])[2]
+    entry = None
+    nb0 = plan["blocks"].shape[1]
+    for label, blocks in (
+            ("1080p frame, the sky still's scene", plan["blocks"]),
+            ("dense cell's stream", plan["blocks"].repeat(
+                1, -(-dense_lanes // (256 * nb0)))[:, :dense_lanes // 256]
+             .contiguous())):
+        p = r._project(dict(plan, blocks=blocks), unpacked,
+                       eng.scene_params, eng.render_config)
+        s_n = p["cx"].shape[0]
+        demand = int(binning.bin_pairs_plain(p, capacity=c.chunk,
+                                             **kw)["n_pairs"])
+        cap = binning.fit_capacity(-(-3 * demand // 2), c.chunk)
+        got = binning.bin_pairs(p, capacity=cap, **kw)
+        want = binning.bin_pairs_plain(p, capacity=cap, **kw)
+        for k in ("range_start", "range_end", "n_pairs", "n_pairs_kept",
+                  "n_live", "overflow"):
+            if not torch.equal(got[k], want[k]):
+                raise RuntimeError(f"[binning] {label}: {k} differs")
+        kept = int(want["n_pairs_kept"])
+        gt, wt = got["table"][:13, :kept], want["table"][:13, :kept]
+        if not torch.equal(gt[12], wt[12]):
+            raise RuntimeError(f"[binning] {label}: the runs differ")
+
+        def diff(rows):
+            """|got - want| of the rows, 0 where they are equal (so -inf
+            against -inf is 0); NaN where either is NaN and they differ"""
+            d = (gt[rows] - wt[rows]).abs()
+            return torch.where(gt[rows] == wt[rows], 0.0, d)
+
+        err = dict(k=0.0, k_rel=0.0, z_rgb=0.0, ln_a_rel=0.0)
+        if kept:
+            dk, da = diff(slice(0, 6)), diff(slice(11, 12))
+            scale = wt[:6].abs().amax(dim=1, keepdim=True)
+            err = dict(
+                k=float(dk.max()),
+                k_rel=float(torch.where(dk == 0, 0.0, dk / scale).max()),
+                z_rgb=float(diff(slice(6, 11)).max()),
+                ln_a_rel=float(torch.where(
+                    da == 0, 0.0, da / wt[11:12].abs()).max()))
+        # `not x <= tol` also fails a NaN
+        if not (err["z_rgb"] == 0.0 and err["k_rel"] <= BIN_TOL["k_rel"]
+                and err["ln_a_rel"] <= BIN_TOL["ln_a_rel"]
+                and (got["table"][5, kept:] == -1e30).all()
+                and torch.isneginf(got["table"][11, kept:]).all()):
+            raise RuntimeError(f"[binning] {label}: table rows against the "
+                               f"plain version {err}, limits {BIN_TOL}")
+        n_valid = int(p["valid"].sum())
+        live = int(want["n_live"])
+        bound_b = (live * BIN_LIVE_B + (n_valid - live) * BIN_OFF_B
+                   + (s_n - n_valid) * BIN_VOID_B + kept * BIN_KEPT_B
+                   + (cap - kept) * BIN_DEAD_B + n_tiles * BIN_TILE_B)
+        bound_ms = bound_b / HBM_BYTES_PER_S * 1e3
+        ms, _ = _median_ms(torch, lambda: binning.bin_pairs(
+            p, capacity=cap, **kw), windows=5, reps=10)
+        plain_ms = _time_ms(torch, lambda: binning.bin_pairs_plain(
+            p, capacity=cap, **kw), 3)
+        print(f"[binning] {label}: {s_n} lanes, {n_valid} valid, {live} "
+              f"live, n_pairs {demand}, kept {kept}, capacity {cap}; table "
+              f"rows against the plain version {err} (limits {BIN_TOL}); "
+              f"{ms:.4f} ms (plain {plain_ms:.4f}); bound {bound_ms:.4f} ms "
+              f"by bytes ({live} x {BIN_LIVE_B} + {n_valid - live} x "
+              f"{BIN_OFF_B} + {s_n - n_valid} x {BIN_VOID_B} + {kept} x "
+              f"{BIN_KEPT_B} + {cap - kept} x {BIN_DEAD_B} + {n_tiles} x "
+              f"{BIN_TILE_B} = {bound_b} B), {100 * bound_ms / ms:.1f}% "
+              f"({smi})")
+        if entry is None:
+            entry = dict(
+                name="binning", route="cuda",
+                source="gswt_renderer_tpu_torch/csrc/binning.cu",
+                replaces="none (XLA ops in the JAX package)",
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes", library_ms=None, max_abs_err=err["k"])
+    return entry
+
+
 def phase_oracle(torch, fi, img, exact, label, smi):
     """The card's gs-only frame `img` against the port's oracle rendered on
     the card from the same FrameInputs. Exact profile: tests/test_pipeline.py's
@@ -755,7 +870,7 @@ def phase_scripts(need, per_frame):
         profile_frame, proxydiv_ab, quick_full, saturation)
     from gswt_renderer_tpu_torch.ops import kernels
 
-    splat = ("project", "raster")
+    splat = ("project", "binning", "raster")
     background = ("bilinear", "trirast", "trirast_fold", "mip_trilinear")
 
     def run(name, fn, argv, names, frames):
@@ -854,7 +969,8 @@ def phase_parallel(torch, eng, need, label, *, gate, layers):
             break
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    need(launches, ("project", "raster"), 4 * call, f"{label} segments")
+    need(launches, ("project", "binning", "raster"), 4 * call,
+         f"{label} segments")
     need(launches, layers, call, f"{label} segmented frames")
     if "mip_trilinear" not in layers and launches.get("mip_trilinear", 0):
         raise RuntimeError(f"[parallel] {label}: mip_trilinear ran; this "
@@ -903,8 +1019,8 @@ def phase_nccl(torch, eng, need):
         img = render_stream_sharded(r, staged, sp, cams[0], mesh, rc, **full)
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
-    need(launches, ("project", "raster", "trirast", "bilinear"), 5,
-         "dp batch and sp frame")
+    need(launches, ("project", "binning", "raster", "trirast", "bilinear"),
+         5, "dp batch and sp frame")
     errs = []
     for i, c in enumerate(cams):
         ref = r.render(None, c, sp, rc, staged=staged, as_numpy=False, **full)
@@ -1349,7 +1465,8 @@ def main():
     kernels.LAUNCHES.clear()
     gs_run = drive(eng, N_FRAMES_GS, "exact gs-only")
     launches_gs = dict(kernels.LAUNCHES)
-    need(launches_gs, ("project", "raster"), N_FRAMES_GS, "gs-only")
+    need(launches_gs, ("project", "binning", "raster"), N_FRAMES_GS,
+         "gs-only")
     report("exact gs-only", gs_run, launches_gs)
 
     # the full config of bench.py: equirect skybox + checker proxy ground
@@ -1879,8 +1996,8 @@ def main():
     kernels.LAUNCHES.clear()
     exact_run = drive(eng, N_FRAMES_EXACT, "exact full-config")
     launches_exact = dict(kernels.LAUNCHES)
-    need(launches_exact, ("project", "raster", "trirast", "trirast_fold",
-                          "bilinear"),
+    need(launches_exact, ("project", "binning", "raster", "trirast",
+                          "trirast_fold", "bilinear"),
          N_FRAMES_EXACT, "exact full-config")
     if launches_exact.get("mip_trilinear", 0):
         raise RuntimeError("the exact-profile frame launched mip_trilinear: "
@@ -1919,6 +2036,7 @@ def main():
 
     # 4d. the projection kernel on the fast frame's own inputs
     pj = phase_project(torch, eng, smi)
+    bn = phase_binning(torch, eng, smi)
 
     # 4c. the compositor's fast variant, and fast + saturation-slot record,
     # on the fast frame's own pair table (quantized values) under its
@@ -1966,10 +2084,10 @@ def main():
     kernels.LAUNCHES.clear()
     fast_run = drive(eng, N_FRAMES, "fast full-config", alpha_share=0.02)
     launches = dict(kernels.LAUNCHES)
-    per_frame = ("project", "raster", "trirast", "trirast_fold",
+    per_frame = ("project", "binning", "raster", "trirast", "trirast_fold",
                  "bilinear", "mip_trilinear")
     need(launches, per_frame, N_FRAMES, "fast full-config")
-    for k in (pj, tr, fd, bl, mp):
+    for k in (pj, bn, tr, fd, bl, mp):
         k["launches"] = launches[k["name"]]
     # the main path no longer copies the stream: block_gather has its own
     # callers (the micro-benchmark, the plain projection)
@@ -2359,7 +2477,7 @@ def main():
     kernels.LAUNCHES.clear()
     ab = {row["variant"]: row for row in batched_ab.main(["-b", "4", "-n", "3"])}
     launches_ab = dict(kernels.LAUNCHES)
-    need(launches_ab, ("project", "raster"), 4, "batched_ab")
+    need(launches_ab, ("project", "binning", "raster"), 4, "batched_ab")
     print(f"[bench] batched_ab, gs-only 1080p, fast profile: interactive "
           f"{ab['interactive']['ms_per_cam']:.2f} ms, batch of 4 identical "
           f"{ab['batch_same']['ms_per_cam']:.2f} ms/camera "
@@ -2397,7 +2515,8 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: d[k] for k in keys}
-                                  for d in [bg, pj, rs, rf, rz, tr, fd, bl, mp]
+                                  for d in [bg, pj, bn, rs, rf, rz, tr, fd, bl,
+                                            mp]
                                   + new_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -132,6 +132,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "torch_semantics.cuh"
+
 namespace {
 
 constexpr int kThreads = 1024;      // the most a CTA may have
@@ -168,10 +170,6 @@ __device__ __forceinline__ constexpr double mask_rel() {
 
 // staged row r -> table row: k0..k5, z, then r, g, b, alpha past row 7
 __device__ __forceinline__ int table_row(int r) { return r < 7 ? r : r + 1; }
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 // sum_i k[i] * f[i] over n terms, left to right, each operation rounded
 template <int n>

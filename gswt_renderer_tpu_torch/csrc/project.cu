@@ -48,6 +48,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "torch_semantics.cuh"
+
 namespace {
 
 constexpr int kBlock = 256;
@@ -124,18 +126,6 @@ __device__ __forceinline__ long long pymod64(long long a, long long n) {
   return r < 0 ? r + n : r;
 }
 
-// torch.clamp: NaN stays NaN; min then max as std::max / std::min
-__device__ __forceinline__ float clampf(float v, float lo, float hi) {
-  if (v != v) return v;
-  v = v < lo ? lo : v;
-  return hi < v ? hi : v;
-}
-
-__device__ __forceinline__ float clamp_min(float v, float lo) {
-  if (v != v) return v;
-  return v < lo ? lo : v;
-}
-
 __device__ __forceinline__ float clamp_max(float v, float hi) {
   if (v != v) return v;
   return hi < v ? hi : v;
@@ -143,12 +133,6 @@ __device__ __forceinline__ float clamp_max(float v, float hi) {
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
-}
-
-// x / c for a Python number c, as ATen divides on the card: x times the
-// float reciprocal of c
-__device__ __forceinline__ float divc(float x, float c) {
-  return x * (1.0f / c);
 }
 
 // torch.remainder(x, 1.0)

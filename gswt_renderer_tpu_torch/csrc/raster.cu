@@ -93,6 +93,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "torch_semantics.cuh"
+
 namespace {
 
 constexpr int kThreads = 1024;      // the most a CTA may have
@@ -117,10 +119,6 @@ constexpr double kMaskRel = 9.5367431640625e-07;  // 2^-20
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ int table_row(int r) { return r < 7 ? r : r + 1; }
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 // pixel i of lane `lane` in warp `warp` (ops/raster.py warp_layout)
 template <bool kBlock>

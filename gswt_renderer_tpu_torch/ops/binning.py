@@ -11,16 +11,23 @@ within a tile they ascend in stream slot, and a frame whose demand exceeds
 the capacity keeps its front-most pairs, as the JAX package's budget does),
 with no read of the demand on the host: the true demand and an overflow
 flag come back as 0-d device tensors. Pairs past the demand, and those the
-exact ellipse-tile cull finds cannot reach the cutoff, take the dead key
-`n_tiles`; one stable sort by tile yields each tile's run in the joint
-(tile, slot) order, the dead pairs after every run.
+exact ellipse-tile cull finds cannot reach the cutoff, are dead; each
+tile's run holds its live pairs in the joint (tile, slot) order, the dead
+slots after every run. The plain version (bin_pairs_plain, the CPU path)
+gives the dead pairs the key `n_tiles` and sorts by tile stably; on the card
+csrc/binning.cu counts the pairs per tile and scatters each into its place,
+a stable counting sort that writes the table where it lies.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from ..core.hostprof import _hprof
+from . import kernels
 
 
 def grid_dims(image_wh, tile_wh):
@@ -297,6 +304,129 @@ def _pad_empty(p):
     return {k: pad(v) for k, v in p.items()}
 
 
+_IN_ROWS = ("cx", "cy", "ext_x", "ext_y", "qa", "qb", "qc", "z", "r", "g",
+            "b", "a")
+
+
+class _BinArgs(ctypes.Structure):
+    """csrc/binning.cu BinArgs."""
+    _fields_ = [("inputs", ctypes.c_void_p * len(_IN_ROWS))] + [
+        (n, ctypes.c_void_p) for n in (
+            "valid", "occ", "sat", "scratch", "table", "range_start",
+            "range_end", "counts", "overflow", "block_demand")] + [
+        ("s", ctypes.c_longlong), ("cap", ctypes.c_longlong)] + [
+        (n, ctypes.c_int) for n in (
+            "img_w", "img_h", "tw", "th", "ntx", "nty", "n_tiles", "n_br",
+            "bh_px", "chunk", "cull_exact", "fast")]
+
+
+@functools.cache
+def _lib():
+    vp, ll = ctypes.c_void_p, ctypes.c_longlong
+    lib = kernels.load("binning", gswt_binning=[ctypes.POINTER(_BinArgs), vp],
+                       gswt_binning_scratch_bytes=[ll, ctypes.c_int, ll],
+                       gswt_binning_max_tiles=[ctypes.c_int])
+    for fn in (lib.gswt_binning_scratch_bytes, lib.gswt_binning_max_tiles):
+        fn.restype = ll
+    return lib
+
+
+def max_tiles(device) -> int:
+    """The largest tile grid (n_tiles) the binning kernel takes on the CUDA
+    `device`: a one-warp block's 8 bytes a tile and staged lanes must fit
+    its opt-in shared memory (27,392 tiles on an H100), and a tile index 16
+    bits."""
+    index = torch.device(device).index
+    return _max_tiles(torch.cuda.current_device() if index is None else index)
+
+
+@functools.cache
+def _max_tiles(index: int) -> int:
+    return int(_lib().gswt_binning_max_tiles(index))
+
+
+def _device_rows(p, dev):
+    """The 12 input rows and the mask, each a contiguous [S] tensor on dev."""
+    qa, qb, qc = p["q"]
+    r, g, b, a = p["color"]
+    rows = dict(cx=p["cx"], cy=p["cy"], ext_x=p["ext_x"], ext_y=p["ext_y"],
+                qa=qa, qb=qb, qc=qc, z=p["z"], r=r, g=g, b=b, a=a)
+    s_n = p["cx"].shape[0]
+    out = []
+    for name in _IN_ROWS:
+        t = rows[name]
+        if t.dtype != torch.float32 or t.device != dev or t.shape != (s_n,):
+            raise ValueError(
+                f"{name} must be a float32 [{s_n}] tensor on {dev}")
+        out.append(t.contiguous())
+    valid = p["valid"]
+    if (valid.dtype != torch.bool or valid.device != dev
+            or valid.shape != (s_n,)):
+        raise ValueError(f"valid must be a bool [{s_n}] tensor on {dev}")
+    return out, valid.contiguous()
+
+
+def _bin_pairs_cuda(p, *, image_wh, tile_wh, chunk, exact, cull_exact,
+                    occ_zimg, sat_simg, emit_block_demand, capacity):
+    """bin_pairs on the card: the six launches of csrc/binning.cu on the
+    current stream, with no read on the host."""
+    ntx, nty, n_tiles = grid_dims(image_wh, tile_wh)
+    rows, valid = _device_rows(p, p["cx"].device)
+    dev = valid.device
+    if n_tiles > max_tiles(dev):
+        raise ValueError(f"a {ntx}x{nty} tile grid exceeds the binning "
+                         f"kernel's {max_tiles(dev)} tiles")
+    capacity = int(capacity)
+    if not 0 <= capacity < 1 << 31:
+        raise ValueError("capacity must lie in [0, 2^31)")
+    for name, t, shape in (("occ_zimg", occ_zimg, (nty, ntx)),
+                           ("sat_simg", sat_simg, None)):
+        if t is not None and (t.dtype != torch.float32 or t.device != dev
+                              or t.dim() != 2 or t.shape[1] != ntx
+                              or (shape and t.shape != shape)):
+            raise ValueError(f"{name} must be a float32 [{shape or 'rows'}, "
+                             f"{ntx}] tensor on {dev}")
+    n_br = bh_px = 0
+    if sat_simg is not None:
+        n_br = sat_simg.shape[0]
+        bh_px = (nty * tile_wh[1]) // n_br
+        sat_simg = sat_simg.contiguous()
+    if occ_zimg is not None:
+        occ_zimg = occ_zimg.contiguous()
+    s_n = valid.shape[0]
+    lib = _lib()
+    scratch = torch.empty(
+        int(lib.gswt_binning_scratch_bytes(s_n, n_tiles, capacity)),
+        dtype=torch.uint8, device=dev)
+    table = torch.empty((16, capacity), dtype=torch.float32, device=dev)
+    ranges = torch.empty((2, n_tiles), dtype=torch.int32, device=dev)
+    counts = torch.empty(3, dtype=torch.int64, device=dev)
+    overflow = torch.empty((), dtype=torch.bool, device=dev)
+    demand = (torch.empty(-(-s_n // 256), dtype=torch.int64, device=dev)
+              if emit_block_demand else None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    args = _BinArgs(
+        (ctypes.c_void_p * len(_IN_ROWS))(*[t.data_ptr() for t in rows]),
+        valid.data_ptr(), ptr(occ_zimg), ptr(sat_simg), scratch.data_ptr(),
+        table.data_ptr(), ranges[0].data_ptr(), ranges[1].data_ptr(),
+        counts.data_ptr(), overflow.data_ptr(), ptr(demand), s_n, capacity,
+        int(image_wh[0]), int(image_wh[1]), int(tile_wh[0]), int(tile_wh[1]),
+        ntx, nty, n_tiles, n_br, bh_px, int(chunk), int(bool(cull_exact)),
+        int(not exact))
+    rc = lib.gswt_binning(ctypes.byref(args), kernels.stream_ptr(table))
+    kernels.LAUNCHES["binning"] += 1
+    kernels.check(rc, "binning")
+    out = dict(table=table, range_start=ranges[0], range_end=ranges[1],
+               n_pairs=counts[0], overflow=overflow, n_pairs_kept=counts[1],
+               n_live=counts[2])
+    if emit_block_demand:
+        out["block_demand"] = demand
+    return out
+
+
 def bin_pairs(p, *, image_wh, tile_wh, chunk: int, exact: bool = True,
               cull_exact: bool = True, occ_zimg=None, sat_simg=None,
               emit_block_demand: bool = False, capacity: int):
@@ -347,7 +477,29 @@ def bin_pairs(p, *, image_wh, tile_wh, chunk: int, exact: bool = True,
         pairs in tile runs after the culls, n_live — visible splats (0-d
         tensors)
       block_demand — with emit_block_demand only (see above)
+
+    CPU tensors take bin_pairs_plain; CUDA tensors launch the kernels of
+    csrc/binning.cu (_bin_pairs_cuda), which leave the table's rows 13-15
+    unwritten and, past n_pairs_kept, write only the dead code (rows 5 and
+    11) and zeros in rows 0-12 up to the end of the chunk that holds
+    n_pairs_kept.
     """
+    if not p["cx"].is_cuda:
+        return bin_pairs_plain(
+            p, image_wh=image_wh, tile_wh=tile_wh, chunk=chunk, exact=exact,
+            cull_exact=cull_exact, occ_zimg=occ_zimg, sat_simg=sat_simg,
+            emit_block_demand=emit_block_demand, capacity=capacity)
+    return _bin_pairs_cuda(
+        p, image_wh=image_wh, tile_wh=tile_wh, chunk=chunk, exact=exact,
+        cull_exact=cull_exact, occ_zimg=occ_zimg, sat_simg=sat_simg,
+        emit_block_demand=emit_block_demand, capacity=capacity)
+
+
+def bin_pairs_plain(p, *, image_wh, tile_wh, chunk: int, exact: bool = True,
+                    cull_exact: bool = True, occ_zimg=None, sat_simg=None,
+                    emit_block_demand: bool = False, capacity: int):
+    """bin_pairs in plain PyTorch: the CPU path and the kernel's oracle
+    (arguments and outputs as bin_pairs, every slot of the table defined)."""
     w_img, h_img = image_wh
     tw, th = tile_wh
     ntx, nty, n_tiles = grid_dims(image_wh, tile_wh)

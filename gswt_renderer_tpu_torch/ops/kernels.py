@@ -1,9 +1,10 @@
 """Building, loading and counting the hand-written CUDA kernels.
 
 Each ``csrc/<name>.cu`` holds one module's kernels behind a plain C
-interface. It is compiled with nvcc for sm_90a into ``build/lib<name>.so`` at
-first use (or by ``build_all``, which starts one nvcc per source at once) and
-loaded with ctypes. A C entry returns ``cudaGetLastError()``; ``check`` raises if it is
+interface; helpers that several sources share sit in ``csrc/*.cuh``
+headers. A source is compiled with nvcc for sm_90a into
+``build/lib<name>.so`` at first use (or by ``build_all``, which starts one
+nvcc per source at once) and loaded with ctypes. A C entry returns ``cudaGetLastError()``; ``check`` raises if it is
 not 0, since a refused launch never runs and a later synchronize would not
 report it.
 
@@ -27,10 +28,12 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 KERNELS = ("blockgather", "raster", "trirast", "bilinear", "miptrilinear",
-           "mergesorted", "micro_raster", "micro_blockgather", "project")
-# nvcc flags of single sources: projection keeps every multiply and add
-# rounded on its own, as its plain PyTorch version does (csrc/project.cu)
-_FLAGS = {"project": ("-fmad=false",)}
+           "mergesorted", "micro_raster", "micro_blockgather", "project",
+           "binning")
+# nvcc flags of single sources: projection and binning keep every multiply
+# and add rounded on its own, as their plain PyTorch versions do
+# (csrc/project.cu, csrc/binning.cu)
+_FLAGS = {"project": ("-fmad=false",), "binning": ("-fmad=false",)}
 
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -65,17 +68,25 @@ def _so_path(name: str) -> str:
 
 
 def _compile_cmd(name: str, out: str) -> list:
+    """nvcc for csrc/<name>.cu; the source is the last word, which a probe
+    build may replace by a copy elsewhere (-I CSRC still finds the shared
+    headers)."""
     return [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", CSRC,
         *_FLAGS.get(name, ()), "-o", out, os.path.join(CSRC, f"{name}.cu"),
     ]
 
 
 def _stale(name: str) -> bool:
+    """The library is missing or older than its source or than any shared
+    header in CSRC (a source may include one)."""
     so = _so_path(name)
-    src = os.path.join(CSRC, f"{name}.cu")
-    return not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src)
+    if not os.path.exists(so):
+        return True
+    srcs = [os.path.join(CSRC, f"{name}.cu")] + [
+        os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh")]
+    return os.path.getmtime(so) < max(os.path.getmtime(s) for s in srcs)
 
 
 def _report_path(name: str) -> str:
