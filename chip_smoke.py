@@ -231,12 +231,13 @@ def phase_project(torch, eng, smi, dense_lanes: int = 1 << 22):
 
     r = eng.renderer
     plan = r.upload_plan(eng._staged)
-    scene_d, cam_d, lod_en, cdist, gs_en = r.frame_uniforms(
-        eng.camera, eng.scene_params, eng.render_config)
+    uniforms = r.pack_uniforms(eng.camera, eng.scene_params,
+                               eng.render_config)
+    scene_d, cam_d, lod_en, cdist, gs_en = r.unpack_frame_uniforms(uniforms)
     keep = project.cull_draws(plan["draw"], cam_d, cdist, lod_en)
     kw = dict(surface_type=int(eng.scene_params.surface_type), draw_mode=0,
-              image_wh=(r.cfg.width, r.cfg.height), gs_enable=gs_en,
-              exact=r.cfg.exact, hm_src=r.hm_src)
+              image_wh=(r.cfg.width, r.cfg.height), exact=r.cfg.exact,
+              hm_src=r.hm_src)
     if r.hm_src is None:
         raise RuntimeError("[kernel] project: the fast frame has no source map")
     entry, worst = None, 0.0
@@ -247,9 +248,11 @@ def phase_project(torch, eng, smi, dense_lanes: int = 1 << 22):
                 1, -(-dense_lanes // (256 * nb0)))[:, :dense_lanes // 256]
              .contiguous())):
         args = (blocks, plan["merged"], r.panels, keep, r.store_packed,
-                scene_d, cam_d, r.hm4, r.height_map_wh)
+                uniforms, r.hm4, r.height_map_wh)
+        plain_args = args[:5] + (scene_d, cam_d) + args[6:]
+        plain_kw = dict(kw, gs_enable=gs_en)
         got = project.assemble_and_project(*args, **kw)
-        want = project.assemble_and_project_plain(*args, **kw)
+        want = project.assemble_and_project_plain(*plain_args, **plain_kw)
         if not torch.equal(got["valid"], want["valid"]):
             raise RuntimeError(f"[kernel] project {label}: the valid mask "
                                f"differs on {int((got['valid'] != want['valid']).sum())} lanes")
@@ -278,7 +281,7 @@ def phase_project(torch, eng, smi, dense_lanes: int = 1 << 22):
         ms, _ = _median_ms(torch, lambda: project.assemble_and_project(
             *args, **kw), windows=5, reps=10)
         plain_ms = _time_ms(torch, lambda: project.assemble_and_project_plain(
-            *args, **kw), 3)
+            *plain_args, **plain_kw), 3)
         print(f"[kernel] project {label}: {s_n} lanes ({live} live, "
               f"{int(v.sum())} valid), against the plain version {err}; "
               f"{ms:.4f} ms (plain {plain_ms:.4f}, bound {bound_ms:.4f} by "
@@ -328,8 +331,9 @@ def phase_binning(torch, eng, smi, dense_lanes: int = 1 << 22):
     r = eng.renderer
     c = r.cfg
     plan = r.upload_plan(eng._staged)
-    unpacked = r.frame_uniforms(eng.camera, eng.scene_params,
-                                eng.render_config)
+    uniforms = r.pack_uniforms(eng.camera, eng.scene_params,
+                               eng.render_config)
+    unpacked = r.unpack_frame_uniforms(uniforms)
     kw = dict(image_wh=(c.width, c.height), tile_wh=(c.tile_w, c.tile_h),
               chunk=c.chunk, exact=c.exact, cull_exact=c.cull_exact)
     n_tiles = binning.grid_dims(kw["image_wh"], kw["tile_wh"])[2]
@@ -340,7 +344,7 @@ def phase_binning(torch, eng, smi, dense_lanes: int = 1 << 22):
             ("dense cell's stream", plan["blocks"].repeat(
                 1, -(-dense_lanes // (256 * nb0)))[:, :dense_lanes // 256]
              .contiguous())):
-        p = r._project(dict(plan, blocks=blocks), unpacked,
+        p = r._project(dict(plan, blocks=blocks), uniforms, unpacked,
                        eng.scene_params, eng.render_config)
         s_n = p["cx"].shape[0]
         demand = int(binning.bin_pairs_plain(p, capacity=c.chunk,

@@ -108,19 +108,3 @@ class CameraUniforms:
         htanx = htany / h * w
         self.htan_fov = np.array([htanx, htany], np.float32)
         self.cam_pos = cam.position.copy()
-
-    def flat(self) -> np.ndarray:
-        """Pack into a flat f32 vector for device transfer:
-        [proj(16, row-major), view(16, row-major), focal(2), viewport(2),
-         htan_fov(2), cam_pos(3), pad(1)] = 42 floats."""
-        return np.concatenate(
-            [
-                self.projection.reshape(-1),
-                self.view.reshape(-1),
-                self.focal,
-                self.viewport,
-                self.htan_fov,
-                self.cam_pos,
-                np.zeros(1, np.float32),
-            ]
-        ).astype(np.float32)

@@ -21,8 +21,8 @@
 // reads nothing else. A panel block reads its 12 rows where they lie, the
 // warp's loads coalesced along the row; a merged block reads the store index
 // and map id from `merged` and then the 10 store rows, so neither the merged
-// scratch nor a gathered copy of the stream is ever written. The scene and
-// camera values are read from the device (one 32-bit word per thread into
+// scratch nor a gathered copy of the stream is ever written. The frame's
+// uniform block is read whole from the device (one word per thread into
 // shared memory), so the host reads nothing. The fast profile's small
 // source height map (at most 4096 texels) is staged in shared memory, and
 // each lane takes its separable Catmull-Rom and bilinear taps from there.
@@ -61,21 +61,17 @@ constexpr double kPi = 3.141592653589793;  // Python's math.pi
 enum Row { ROW_CX, ROW_CY, ROW_QA, ROW_QB, ROW_QC, ROW_Z, ROW_R, ROW_G,
            ROW_B, ROW_A, ROW_EXT_X, ROW_EXT_Y, kRows };
 
-// the scene and camera values, one 32-bit word each (float or int32)
-enum Field { F_VIEW, F_PROJ, F_FOCAL, F_HTAN, F_CAM, F_SSCALE, F_TW,
-             F_USE_CLIP, F_CLIP_H, F_SPH_R, F_PC_R, F_TWR, F_NUM_LOD, F_HALF,
-             F_CENTER, F_TRANS, F_HMS, F_SSC, F_GS, kFields };
-enum Word { W_VIEW = 0, W_PROJ = 16, W_FOCAL = 32, W_HTAN = 34, W_CAM = 36,
-            W_SSCALE = 39, W_TW = 40, W_USE_CLIP = 41, W_CLIP_H = 42,
-            W_SPH_R = 43, W_PC_R = 44, W_TWR = 45, W_NUM_LOD = 46,
-            W_HALF = 47, W_CENTER = 49, W_TRANS = 51, W_HMS = 67, W_SSC = 70,
-            W_GS = 73, kWords = 74 };
-constexpr int kFieldWord[kFields + 1] = {
-    W_VIEW, W_PROJ, W_FOCAL, W_HTAN, W_CAM, W_SSCALE, W_TW, W_USE_CLIP,
-    W_CLIP_H, W_SPH_R, W_PC_R, W_TWR, W_NUM_LOD, W_HALF, W_CENTER, W_TRANS,
-    W_HMS, W_SSC, W_GS, kWords};
-
 }  // namespace
+
+// The first word of each field the kernel reads in the frame's uniform
+// block; ops/project.py UNIFORMS holds the layout. Mirrored by ops/project.py
+// _UniformWords.
+struct UniformWords {
+  int view, proj_wgpu, focal, htan_fov, cam_pos, splat_scale, tile_width,
+      use_clip, clip_height, sphere_radius, point_cloud_radius,
+      transition_width_ratio, num_lod, map_half_wh, center_coord,
+      transition_dist_vec, height_map_scale, scene_scale, gs_enable;
+};
 
 // Mirrored by ops/project.py _ProjectArgs.
 struct ProjectArgs {
@@ -91,19 +87,16 @@ struct ProjectArgs {
   long long n_draws;
   const float* hm4;               // [4, hm_w * hm_h] f32
   const float* hm_src;            // [src_h, src_w] f32 (kHeight 2)
-  const void* field[kFields];     // device scalars and vectors; F_GS may be null
+  const float* uniforms;          // [n_uniforms] f32, the frame's uniform block
+  UniformWords words;
   float* out;                     // [kRows, nb * 256] f32
   unsigned char* valid;           // [nb * 256] bool
+  int n_uniforms;                 // at most kBlock
   int plan_rows, hm_w, hm_h, src_w, src_h;
   int draw_mode, point_cloud, img_w, img_h;
 };
 
 namespace {
-
-struct Params {
-  ProjectArgs a;
-  const unsigned* word[kWords];
-};
 
 // ------------------------------------------------------------------------
 // Python's integer semantics (torch.div(..., rounding_mode="floor"), %)
@@ -142,10 +135,12 @@ __device__ __forceinline__ float rem1(float a) {
   return m;
 }
 
+// the uniform block in shared memory: f(k) the float at word k, i(k) the
+// int field there (the integral word, truncated as .to(torch.int32) does)
 struct Uni {
-  const unsigned* w;
-  __device__ float f(int i) const { return __uint_as_float(w[i]); }
-  __device__ int i(int k) const { return (int)w[k]; }
+  const float* v;
+  __device__ float f(int k) const { return v[k]; }
+  __device__ int i(int k) const { return __float2int_rz(v[k]); }
 };
 
 // ------------------------------------------------------------------------
@@ -224,6 +219,7 @@ template <int kSurface, int kHeight>
 __device__ __forceinline__ Frame surface_mapping(
     const Uni& u, const ProjectArgs& a, const float* smap, float px, float py,
     int map_id, int single, int mc_x, int mc_y) {
+  const UniformWords& word = a.words;
   Frame fr;
   if constexpr (kSurface == 0) {
     fr.mx = px; fr.my = py; fr.mz = 0.0f;
@@ -232,14 +228,16 @@ __device__ __forceinline__ Frame surface_mapping(
     fr.zx = 0.0f; fr.zy = 0.0f; fr.zz = 1.0f;
     return fr;
   } else if constexpr (kSurface == 1) {
-    const float half0 = (float)u.i(W_HALF), half1 = (float)u.i(W_HALF + 1);
-    const float tw = u.f(W_TW);
-    const float hx = (2.0f * half0 + 1.0f) * tw * u.f(W_HMS);
-    const float hy = (2.0f * half1 + 1.0f) * tw * u.f(W_HMS + 1);
+    const float half0 = (float)u.i(word.map_half_wh);
+    const float half1 = (float)u.i(word.map_half_wh + 1);
+    const float tw = u.f(word.tile_width);
+    const float hx = (2.0f * half0 + 1.0f) * tw * u.f(word.height_map_scale);
+    const float hy =
+        (2.0f * half1 + 1.0f) * tw * u.f(word.height_map_scale + 1);
     const float hu = (px + half0 * tw) / hx;
     const float hv = (py + half1 * tw) / hy;
     const int w = a.hm_w, h = a.hm_h;
-    const float z = u.f(W_HMS + 2);
+    const float z = u.f(word.height_map_scale + 2);
     float height, gx, gy;
     if constexpr (kHeight == 0) {
       const float dt = 0.001f;
@@ -300,10 +298,12 @@ __device__ __forceinline__ Frame surface_mapping(
     return fr;
   } else {
     // sphere (gswt.wgsl:590-623)
-    const int half_i0 = u.i(W_HALF), half_i1 = u.i(W_HALF + 1);
+    const int half_i0 = u.i(word.map_half_wh);
+    const int half_i1 = u.i(word.map_half_wh + 1);
     const float half0 = (float)half_i0, half1 = (float)half_i1;
-    const float tw = u.f(W_TW);
-    const float cc0 = (float)u.i(W_CENTER), cc1 = (float)u.i(W_CENTER + 1);
+    const float tw = u.f(word.tile_width);
+    const float cc0 = (float)u.i(word.center_coord);
+    const float cc1 = (float)u.i(word.center_coord + 1);
     const float ymax = half1 * 2.0f * tw;
     const float block_w = divc(half0 * 2.0f * tw, 5.0f);
     const float wx = px - (cc0 - half0) * tw;
@@ -315,7 +315,7 @@ __device__ __forceinline__ Frame surface_mapping(
     const float bidy = (float)floordiv(2 * mj, 2 * half_i1);
     const float bx = wx - bidx * block_w;
     const float by = wy - bidy * block_w;
-    const float r = u.f(W_SPH_R);
+    const float r = u.f(word.sphere_radius);
 
     // _sphere_get_uv then _sphere_uv_to_pos
     auto pos_at = [&](float bxx, float byy, float* ox, float* oy, float* oz) {
@@ -370,14 +370,13 @@ __device__ __forceinline__ float wgsl_rand(float x, float y) {
 }
 
 __device__ __forceinline__ void draw_mode_colour(
-    int mode, bool on_sphere, const Uni& u, float* cr, float* cg, float* cb,
+    int mode, bool on_sphere, float tw, float* cr, float* cg, float* cb,
     float pos_x, float pos_y, float off_x, float off_y, int tile_lod,
     int lod_id, int single, bool is_changing, float t_ratio, int view_id,
     int single_lod, int tile_id) {
   if (mode == 1) {  // TileID
     const float gray = clampf(divc(*cr + *cg + *cb, 0.6f), 0.0f, 1.0f);
     float r = gray, g = gray, b = gray;
-    const float tw = u.f(W_TW);
     const float margin = 0.05f * tw;
     const bool west = pos_x < margin;
     const bool east = pos_x > tw - margin;
@@ -440,12 +439,11 @@ __device__ __forceinline__ void draw_mode_colour(
 // ------------------------------------------------------------------------
 template <int kSurface, int kHeight>
 __global__ void __launch_bounds__(kBlock)
-    project_kernel(const __grid_constant__ Params p) {
-  __shared__ unsigned su[kWords];
+    project_kernel(const __grid_constant__ ProjectArgs a) {
+  __shared__ float su[kBlock];
   extern __shared__ float smap[];
-  const ProjectArgs& a = p.a;
   const int lane = threadIdx.x;
-  if (lane < kWords) su[lane] = p.word[lane] ? __ldg(p.word[lane]) : 1u;
+  if (lane < a.n_uniforms) su[lane] = __ldg(a.uniforms + lane);
   const float* map = a.hm_src;
   if constexpr (kHeight == 2) {
     const int n = a.src_w * a.src_h;
@@ -456,6 +454,7 @@ __global__ void __launch_bounds__(kBlock)
   }
   __syncthreads();
   const Uni u{su};
+  const UniformWords& word = a.words;
 
   const long long nb = a.nb;
   const long long b = blockIdx.x;
@@ -475,7 +474,7 @@ __global__ void __launch_bounds__(kBlock)
   const int lo = a.plan_rows >= 6 ? a.blocks[5 * nb + b] : 0;
   const int keep_blk =
       draw >= 0 && draw < a.n_draws ? (int)a.keep_draw[draw] : 0;
-  const int keep = keep_blk & ((bits1 >> 28) & 1) & u.i(W_GS);
+  const int keep = keep_blk & ((bits1 >> 28) & 1) & u.i(word.gs_enable);
   if (keep != 1 || lane >= nvalid || lane < lo) {
     dead();
     return;
@@ -528,9 +527,10 @@ __global__ void __launch_bounds__(kBlock)
   float cb = divc((float)((rgba >> 16) & 0xFF), 255.0f);
   float ca = divc((float)((rgba >> 24) & 0xFF), 255.0f);
 
-  const int half_i0 = u.i(W_HALF), half_i1 = u.i(W_HALF + 1);
-  const int cc_i0 = u.i(W_CENTER), cc_i1 = u.i(W_CENTER + 1);
-  const float tw = u.f(W_TW);
+  const int half_i0 = u.i(word.map_half_wh);
+  const int half_i1 = u.i(word.map_half_wh + 1);
+  const int cc_i0 = u.i(word.center_coord), cc_i1 = u.i(word.center_coord + 1);
+  const float tw = u.f(word.tile_width);
   const int map_h = 2 * half_i1 + (kSurface == 2 ? 0 : 1);
   const int mc_x = floordiv(map_index, map_h);
   const int mc_y = pymod(map_index, map_h);
@@ -542,7 +542,8 @@ __global__ void __launch_bounds__(kBlock)
   // the draw's own offset, which seeds the TileID tint
   const float doff_x = (float)(mc_x - half_i0 + cc_i0) * tw;
   const float doff_y = (float)(mc_y - half_i1 + cc_i1) * tw;
-  const float ssc0 = u.f(W_SSC), ssc1 = u.f(W_SSC + 1), ssc2 = u.f(W_SSC + 2);
+  const float ssc0 = u.f(word.scene_scale), ssc1 = u.f(word.scene_scale + 1);
+  const float ssc2 = u.f(word.scene_scale + 2);
   const float cx_w = (pos_x + off_x) * ssc0;
   const float cy_w = (pos_y + off_y) * ssc1;
   const float cz_w = (pos_z + 0.0f) * ssc2;
@@ -558,15 +559,17 @@ __global__ void __launch_bounds__(kBlock)
   }
 
   // z clip (gswt.wgsl:84-87)
-  if (u.i(W_USE_CLIP) == 1 && fr.mz < u.f(W_CLIP_H)) valid = false;
+  if (u.i(word.use_clip) == 1 && fr.mz < u.f(word.clip_height)) valid = false;
 
   // LOD transition (gswt.wgsl:89-150)
-  const float dxc = cx_n - u.f(W_CAM);
-  const float dyc = cy_n - u.f(W_CAM + 1);
-  const float dzc = cz_n - u.f(W_CAM + 2);
+  const float dxc = cx_n - u.f(word.cam_pos);
+  const float dyc = cy_n - u.f(word.cam_pos + 1);
+  const float dzc = cz_n - u.f(word.cam_pos + 2);
   const float cam_dist = sqrtf(dxc * dxc + dyc * dyc + dzc * dzc);
-  const int num_lod = u.i(W_NUM_LOD);
-  auto lut16 = [&](int idx) { return u.f(W_TRANS + clampi(idx, 0, 15)); };
+  const int num_lod = u.i(word.num_lod);
+  auto lut16 = [&](int idx) {
+    return u.f(word.transition_dist_vec + clampi(idx, 0, 15));
+  };
   int hl_single;
   if (lod_id == 0) hl_single = 0;
   else if (lod_id == num_lod - 1) hl_single = lod_id - 1;
@@ -575,7 +578,7 @@ __global__ void __launch_bounds__(kBlock)
   const int hl_tile = to_lower == 1 ? tile_lod : tile_lod - 1;
   const int higher_lod = clampi(single == 1 ? hl_single : hl_tile, 0, 15);
   const float t_dist = lut16(higher_lod);
-  const float half_w = u.f(W_TWR) * t_dist;
+  const float half_w = u.f(word.transition_width_ratio) * t_dist;
   float t_ratio = clampf((cam_dist - t_dist) / half_w + 0.5f, 0.0f, 1.0f);
   if (t_ratio != t_ratio) t_ratio = 1.0f;  // nan_to_num(nan=1.0)
   const bool is_changing = changing == 1;
@@ -590,13 +593,13 @@ __global__ void __launch_bounds__(kBlock)
     return u.f(m + 4 * r) * x + u.f(m + 4 * r + 1) * y +
            u.f(m + 4 * r + 2) * z + u.f(m + 4 * r + 3);
   };
-  const float vx = apply(W_VIEW, 0, cx_n, cy_n, cz_n);
-  const float vy = apply(W_VIEW, 1, cx_n, cy_n, cz_n);
-  const float vz = apply(W_VIEW, 2, cx_n, cy_n, cz_n);
-  const float p0 = apply(W_PROJ, 0, vx, vy, vz);
-  const float p1 = apply(W_PROJ, 1, vx, vy, vz);
-  const float p2 = apply(W_PROJ, 2, vx, vy, vz);
-  const float p3 = apply(W_PROJ, 3, vx, vy, vz);
+  const float vx = apply(word.view, 0, cx_n, cy_n, cz_n);
+  const float vy = apply(word.view, 1, cx_n, cy_n, cz_n);
+  const float vz = apply(word.view, 2, cx_n, cy_n, cz_n);
+  const float p0 = apply(word.proj_wgpu, 0, vx, vy, vz);
+  const float p1 = apply(word.proj_wgpu, 1, vx, vy, vz);
+  const float p2 = apply(word.proj_wgpu, 2, vx, vy, vz);
+  const float p3 = apply(word.proj_wgpu, 3, vx, vy, vz);
   const float clip = 1.2f * p3;
   if (p2 < -clip || p0 < -clip || p0 > clip || p1 < -clip || p1 > clip)
     valid = false;
@@ -604,7 +607,7 @@ __global__ void __launch_bounds__(kBlock)
   // covariance (gswt.wgsl:169-205)
   float va, vb, vc2, vd, ve, vf;
   if (a.point_cloud) {
-    float p_r = 1.0f * u.f(W_PC_R);
+    float p_r = 1.0f * u.f(word.point_cloud_radius);
     if (a.draw_mode > 0) p_r = p_r * ldexpf(1.0f, tile_lod);
     va = p_r; vb = 0.0f * p_r; vc2 = 0.0f * p_r;
     vd = p_r; ve = 0.0f * p_r; vf = p_r;
@@ -640,16 +643,16 @@ __global__ void __launch_bounds__(kBlock)
   vf = vf * ssc2 * ssc2;
 
   // EWA Jacobian (gswt.wgsl:207-245)
-  auto r3 = [&](int r, int c) { return u.f(W_VIEW + 4 * r + c); };
+  auto r3 = [&](int r, int c) { return u.f(word.view + 4 * r + c); };
   const float tx3 = r3(0, 0) * dxc + r3(0, 1) * dyc + r3(0, 2) * dzc;
   const float ty3 = r3(1, 0) * dxc + r3(1, 1) * dyc + r3(1, 2) * dzc;
   const float tz3 = r3(2, 0) * dxc + r3(2, 1) * dyc + r3(2, 2) * dzc;
-  const float limx = 1.3f * u.f(W_HTAN);
-  const float limy = 1.3f * u.f(W_HTAN + 1);
+  const float limx = 1.3f * u.f(word.htan_fov);
+  const float limy = 1.3f * u.f(word.htan_fov + 1);
   const float txc = clampf(tx3 / tz3, -limx, limx) * tz3;
   const float tyc = clampf(ty3 / tz3, -limy, limy) * tz3;
   const float tz2 = tz3 * tz3;
-  const float fx = u.f(W_FOCAL), fy = u.f(W_FOCAL + 1);
+  const float fx = u.f(word.focal), fy = u.f(word.focal + 1);
   const float j00 = fx / tz3;
   const float j20 = -fx * txc / tz2;
   const float j11 = fy / tz3;
@@ -685,7 +688,7 @@ __global__ void __launch_bounds__(kBlock)
   }
   const float len1 = clamp_max(sqrtf(2.0f * clamp_min(lam1, 0.0f)), 1024.0f);
   const float len2 = clamp_max(sqrtf(2.0f * clamp_min(lam2, 0.0f)), 1024.0f);
-  const float sscale = u.f(W_SSCALE);
+  const float sscale = u.f(word.splat_scale);
   const float maj_x = len1 * dgx * sscale;
   const float maj_y = len1 * dgy * sscale;
   const float min_x = len2 * dgy * sscale;
@@ -693,7 +696,7 @@ __global__ void __launch_bounds__(kBlock)
 
   // colour + debug modes + lod alpha + near fade
   if (a.draw_mode != 0)
-    draw_mode_colour(a.draw_mode, kSurface == 2, u, &cr, &cg, &cb, pos_x,
+    draw_mode_colour(a.draw_mode, kSurface == 2, tw, &cr, &cg, &cb, pos_x,
                      pos_y, doff_x, doff_y, tile_lod, lod_id, single,
                      is_changing, t_ratio, view_id, single_lod, tile_id);
   ca = ca * alpha_mul;
@@ -748,9 +751,9 @@ __global__ void __launch_bounds__(kBlock)
 }
 
 template <int kSurface, int kHeight>
-cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
+cudaError_t launch(const ProjectArgs& a, size_t smem, cudaStream_t stream) {
   project_kernel<kSurface, kHeight>
-      <<<(unsigned)p.a.nb, kBlock, smem, stream>>>(p);
+      <<<(unsigned)a.nb, kBlock, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -761,13 +764,8 @@ cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
 extern "C" int gswt_project(const ProjectArgs* args, int surface,
                             int height_path, void* stream) {
   if (args->nb <= 0) return (int)cudaGetLastError();
-  Params p;
-  p.a = *args;
-  for (int f = 0; f < kFields; ++f) {
-    const unsigned* base = (const unsigned*)args->field[f];
-    for (int w = kFieldWord[f]; w < kFieldWord[f + 1]; ++w)
-      p.word[w] = base ? base + (w - kFieldWord[f]) : nullptr;
-  }
+  if (args->n_uniforms > kBlock) return (int)cudaErrorInvalidValue;
+  const ProjectArgs& p = *args;
   const cudaStream_t st = (cudaStream_t)stream;
   if (surface == 0) return (int)launch<0, 0>(p, 0, st);
   if (surface == 2) return (int)launch<2, 0>(p, 0, st);

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -312,6 +313,99 @@ def merged_scratch(merged, store_packed, rows: int):
     ).contiguous()
 
 
+class UniformField(NamedTuple):
+    """One field of the frame's uniform block: its dict in unpack's result
+    ("cam", "scene" or "frame"), its name, its first word, its shape (() for
+    a scalar) and the dtype unpack gives it."""
+    group: str
+    name: str
+    word: int
+    shape: tuple
+    dtype: torch.dtype
+
+    @property
+    def words(self) -> int:
+        return math.prod(self.shape)
+
+
+# The frame's uniform block, [UNIFORMS_LEN] f32, in the JAX package's layout
+# (its render/pipeline.py pack_frame_uniforms): the one statement of its
+# offsets. render/pipeline.py pack_frame_uniforms writes it through
+# pack_uniform_block, unpack_uniform_block reads it, and csrc/project.cu
+# reads the words _UNIFORM_WORDS gives it. An int field travels as an
+# integral f32 word.
+_F32, _I32 = torch.float32, torch.int32
+UNIFORMS = tuple(UniformField(*f) for f in (
+    ("cam", "view", 0, (4, 4), _F32),
+    ("cam", "proj_wgpu", 16, (4, 4), _F32),
+    ("cam", "view_proj", 32, (4, 4), _F32),
+    ("cam", "focal", 48, (2,), _F32),
+    ("cam", "htan_fov", 50, (2,), _F32),
+    ("cam", "cam_pos", 52, (3,), _F32),
+    ("scene", "splat_scale", 55, (), _F32),
+    ("scene", "tile_width", 56, (), _F32),
+    ("scene", "use_clip", 57, (), _I32),
+    ("scene", "clip_height", 58, (), _F32),
+    ("scene", "sphere_radius", 59, (), _F32),
+    ("scene", "point_cloud_radius", 60, (), _F32),
+    ("scene", "transition_width_ratio", 61, (), _F32),
+    ("scene", "num_lod", 62, (), _I32),
+    ("scene", "map_half_wh", 63, (2,), _I32),
+    ("scene", "center_coord", 65, (2,), _I32),
+    ("scene", "transition_dist_vec", 67, (16,), _F32),
+    ("scene", "height_map_scale", 83, (3,), _F32),
+    ("scene", "scene_scale", 86, (3,), _F32),
+    ("frame", "lod_enable", 89, (16,), _I32),
+    ("frame", "culling_dist", 105, (), _F32),
+    ("frame", "gs_enable", 106, (), _I32),
+))
+UNIFORMS_LEN = 112
+# each field with its index into the block: its word for a scalar, else a
+# slice (pack and unpack run every frame, so one indexing op a field)
+_AT = tuple((f, f.word if not f.shape else slice(f.word, f.word + f.words))
+            for f in UNIFORMS)
+
+
+def pack_uniform_block(values) -> np.ndarray:
+    """The uniform block [UNIFORMS_LEN] f32 holding values[name] (array-like
+    of the field's shape) at each field of UNIFORMS; every other word 0."""
+    v = np.zeros(UNIFORMS_LEN, np.float32)
+    for f, at in _AT:
+        x = values[f.name]
+        v[at] = np.ravel(x) if len(f.shape) > 1 else x
+    return v
+
+
+def unpack_uniform_block(v):
+    """(scene, cam, lod_enable, culling_dist, gs_enable) of a uniform block
+    tensor v: the scene and cam dicts keyed by field name, every field a
+    view of v in its shape, an int field a view of one int32 copy of v (the
+    truncation of its integral word)."""
+    vi = v.to(_I32)
+    out = dict(cam={}, scene={}, frame={})
+    for f, at in _AT:
+        t = (vi if f.dtype == _I32 else v)[at]
+        out[f.group][f.name] = t.view(f.shape) if len(f.shape) > 1 else t
+    fr = out["frame"]
+    return (out["scene"], out["cam"], fr["lod_enable"], fr["culling_dist"],
+            fr["gs_enable"])
+
+
+class _UniformWords(ctypes.Structure):
+    """csrc/project.cu's UniformWords: the first word of each field the
+    kernel reads."""
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "view", "proj_wgpu", "focal", "htan_fov", "cam_pos", "splat_scale",
+        "tile_width", "use_clip", "clip_height", "sphere_radius",
+        "point_cloud_radius", "transition_width_ratio", "num_lod",
+        "map_half_wh", "center_coord", "transition_dist_vec",
+        "height_map_scale", "scene_scale", "gs_enable")]
+
+
+_WORD = {f.name: f.word for f in UNIFORMS}
+_UNIFORM_WORDS = _UniformWords(*(_WORD[n] for n, _ in _UniformWords._fields_))
+
+
 class _ProjectArgs(ctypes.Structure):
     """csrc/project.cu's ProjectArgs."""
     _fields_ = [
@@ -321,8 +415,9 @@ class _ProjectArgs(ctypes.Structure):
         ("store", ctypes.c_void_p), ("store_cols", ctypes.c_longlong),
         ("keep_draw", ctypes.c_void_p), ("n_draws", ctypes.c_longlong),
         ("hm4", ctypes.c_void_p), ("hm_src", ctypes.c_void_p),
-        ("field", ctypes.c_void_p * 19),
+        ("uniforms", ctypes.c_void_p), ("words", _UniformWords),
         ("out", ctypes.c_void_p), ("valid", ctypes.c_void_p),
+        ("n_uniforms", ctypes.c_int),
         ("plan_rows", ctypes.c_int), ("hm_w", ctypes.c_int),
         ("hm_h", ctypes.c_int), ("src_w", ctypes.c_int),
         ("src_h", ctypes.c_int), ("draw_mode", ctypes.c_int),
@@ -334,27 +429,6 @@ class _ProjectArgs(ctypes.Structure):
 # the kernel's output rows (csrc/project.cu Row): binning's stacking order
 ROWS = ("cx", "cy", "qa", "qb", "qc", "z", "r", "g", "b", "a", "ext_x",
         "ext_y")
-
-# the scene and camera values the kernel reads on the device, in the order
-# of csrc/project.cu Field: (dict, key, dtype, words)
-_FIELDS = (
-    ("cam", "view", torch.float32, 16), ("cam", "proj_wgpu", torch.float32, 16),
-    ("cam", "focal", torch.float32, 2), ("cam", "htan_fov", torch.float32, 2),
-    ("cam", "cam_pos", torch.float32, 3),
-    ("scene", "splat_scale", torch.float32, 1),
-    ("scene", "tile_width", torch.float32, 1),
-    ("scene", "use_clip", torch.int32, 1),
-    ("scene", "clip_height", torch.float32, 1),
-    ("scene", "sphere_radius", torch.float32, 1),
-    ("scene", "point_cloud_radius", torch.float32, 1),
-    ("scene", "transition_width_ratio", torch.float32, 1),
-    ("scene", "num_lod", torch.int32, 1),
-    ("scene", "map_half_wh", torch.int32, 2),
-    ("scene", "center_coord", torch.int32, 2),
-    ("scene", "transition_dist_vec", torch.float32, 16),
-    ("scene", "height_map_scale", torch.float32, 3),
-    ("scene", "scene_scale", torch.float32, 3),
-)
 
 
 def _checked(t, dtype, dev, name, numel=None):
@@ -369,17 +443,20 @@ def _checked(t, dtype, dev, name, numel=None):
 
 
 def assemble_and_project(blocks, merged, panels, keep_draw, store_packed,
-                         scene, cam, hm4, hm_wh, *, surface_type: int,
+                         uniforms, hm4, hm_wh, *, surface_type: int,
                          draw_mode: int, image_wh,
-                         point_cloud: bool = False, gs_enable=None,
-                         exact: bool = True, hm_src=None):
+                         point_cloud: bool = False, exact: bool = True,
+                         hm_src=None):
     """Assemble the front-to-back splat stream from 256-wide panels and
     project it (vs_main math, gswt.wgsl:27-422); arguments and outputs as
-    assemble_and_project_plain. CPU tensors take the plain version; CUDA
-    tensors launch the one kernel of csrc/project.cu, whose outputs are row
-    views of one [12, S] tensor (ROWS) and which writes zeros on every lane
-    that is not valid."""
+    assemble_and_project_plain, but the scene, camera and gs_enable come as
+    the frame's packed uniform block ([UNIFORMS_LEN] f32). CPU tensors
+    unpack it and take the plain version; CUDA tensors launch the one
+    kernel of csrc/project.cu, which reads the block whole, and whose
+    outputs are row views of one [12, S] tensor (ROWS) and which writes
+    zeros on every lane that is not valid."""
     if not blocks.is_cuda:
+        scene, cam, _, _, gs_enable = unpack_uniform_block(uniforms)
         return assemble_and_project_plain(
             blocks, merged, panels, keep_draw, store_packed, scene, cam, hm4,
             hm_wh, surface_type=surface_type, draw_mode=draw_mode,
@@ -400,6 +477,7 @@ def assemble_and_project(blocks, merged, panels, keep_draw, store_packed,
     if panels.shape[1] % BLOCK:
         raise ValueError(f"panels' width must be a multiple of {BLOCK}")
     _checked(keep_draw, torch.bool, dev, "keep_draw")
+    _checked(uniforms, torch.float32, dev, "uniforms", UNIFORMS_LEN)
     surface_type, draw_mode = int(surface_type), int(draw_mode)
     if surface_type not in (0, 1, 2) or draw_mode not in range(5):
         raise ValueError(f"surface_type {surface_type} or draw_mode "
@@ -413,10 +491,6 @@ def assemble_and_project(blocks, merged, panels, keep_draw, store_packed,
             height_path = 2
             _checked(hm_src, torch.float32, dev, "hm_src")
             src_h, src_w = hm_src.shape
-    dicts = dict(cam=cam, scene=scene)
-    fields = [_checked(dicts[d][k], dt, dev, k, n) for d, k, dt, n in _FIELDS]
-    if gs_enable is not None:
-        fields.append(_checked(gs_enable, torch.int32, dev, "gs_enable", 1))
 
     s = nb * BLOCK
     out = torch.empty((len(ROWS), s), dtype=torch.float32, device=dev)
@@ -427,8 +501,8 @@ def assemble_and_project(blocks, merged, panels, keep_draw, store_packed,
             panels.data_ptr(), panels.shape[1], store_packed.data_ptr(),
             store_packed.shape[1], keep_draw.data_ptr(), keep_draw.numel(),
             hm4.data_ptr(), hm_src.data_ptr() if height_path == 2 else None,
-            (ctypes.c_void_p * 19)(*[t.data_ptr() for t in fields]),
-            out.data_ptr(), valid.data_ptr(), rows, w, h, src_w, src_h,
+            uniforms.data_ptr(), _UNIFORM_WORDS, out.data_ptr(),
+            valid.data_ptr(), UNIFORMS_LEN, rows, w, h, src_w, src_h,
             draw_mode, int(bool(point_cloud)), int(image_wh[0]),
             int(image_wh[1]))
         lib = kernels.load("project", gswt_project=[

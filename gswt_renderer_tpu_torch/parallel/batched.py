@@ -43,7 +43,7 @@ import torch.distributed as dist
 from ..core.camera import CameraUniforms
 from ..core.config import RenderConfig
 from ..ops.kernels import resolve_device
-from ..render.pipeline import STREAM_BLOCK
+from ..render.pipeline import STREAM_BLOCK, upload_parts
 
 _BACKEND = {"cuda": "nccl", "cpu": "gloo"}
 
@@ -114,7 +114,7 @@ def pack_camera_batch(renderer, scene_params, cameras, render_config=None):
                                      lod_enable, rc.culling_dist)
         for c in cameras
     ]
-    return torch.as_tensor(np.stack(vecs)).to(renderer.device)
+    return upload_parts([np.stack(vecs)], renderer.device)[0]
 
 
 def _layers(renderer, use_skybox, use_proxy):
@@ -236,9 +236,11 @@ def segment_blocks(blocks_host, entries):
 def _frame_setup(renderer, staged, scene_params, camera, rc, use_skybox,
                  use_proxy):
     """What every segment of one frame shares: the uploaded plan, the
-    unpacked uniforms, the background and the proxy depth."""
+    packed uniforms and their unpacked form, the background and the proxy
+    depth."""
     use_skybox, use_proxy = _layers(renderer, use_skybox, use_proxy)
-    unpacked = renderer.frame_uniforms(camera, scene_params, rc)
+    uniforms = renderer.pack_uniforms(camera, scene_params, rc)
+    unpacked = renderer.unpack_frame_uniforms(uniforms)
 
     def attempt():
         bg, depth_tiles, aux = renderer.background(
@@ -248,7 +250,8 @@ def _frame_setup(renderer, staged, scene_params, camera, rc, use_skybox,
 
     bg, depth_tiles = renderer.exactly(attempt)
     return dict(plan=renderer.upload_plan(staged),
-                blocks_host=staged["blocks"], unpacked=unpacked, bg=bg,
+                blocks_host=staged["blocks"], uniforms=uniforms,
+                unpacked=unpacked, bg=bg,
                 depth_tiles=depth_tiles, use_proxy=use_proxy, scene=scene_params,
                 rc=rc)
 
@@ -260,8 +263,8 @@ def render_segment(renderer, frame, entries):
     of each window entry [max(len(entries), 1)])."""
     plan = dict(frame["plan"], blocks=torch.as_tensor(
         segment_blocks(frame["blocks_host"], entries)).to(renderer.device))
-    p = renderer._project(plan, frame["unpacked"], frame["scene"],
-                          frame["rc"])
+    p = renderer._project(plan, frame["uniforms"], frame["unpacked"],
+                          frame["scene"], frame["rc"])
 
     def attempt():
         binned, aux = renderer.bin_pairs(p, frame["depth_tiles"],

@@ -102,8 +102,9 @@ PROXY_CHUNK = 128
 # profiler is on (ops/proxy.py grid_counts)
 AUX_KEYS = ("n_pairs", "n_pairs_kept", "n_live", "overflow", "proxy_pairs",
             "proxy_overflow", "proxy_tris_live", "proxy_tris_thin")
-# a byte offset every array of an uploaded plan starts at a multiple of
-_PLAN_ALIGN = 256
+# every array of an upload (upload_parts) starts at a multiple of this many
+# bytes
+_UPLOAD_ALIGN = 256
 
 
 class PairBudget:
@@ -294,10 +295,33 @@ def state_from_numpy(arrays: dict, device) -> dict:
     return out
 
 
+def upload_parts(parts, device):
+    """numpy arrays of one dtype as tensors on `device`. On the card they
+    go up in one non-blocking copy from a pinned buffer allocated for it,
+    carved into views (each 256-B aligned) on the device: the caching host
+    allocator records the copy's event and hands the buffer out again only
+    once the copy has completed, so nothing waits or keeps the buffer. On
+    the CPU they are the arrays themselves (torch.from_numpy)."""
+    if device.type != "cuda":
+        return [torch.from_numpy(a) for a in parts]
+    step = _UPLOAD_ALIGN // parts[0].itemsize
+    offs, n = [], 0
+    for a in parts:
+        offs.append(n)
+        n += -(-a.size // step) * step
+    host = torch.empty(n, dtype=torch.from_numpy(parts[0]).dtype,
+                       pin_memory=True)
+    hn = host.numpy()
+    for a, o in zip(parts, offs):
+        hn[o:o + a.size] = a.reshape(-1)
+    dev = host.to(device, non_blocking=True)
+    return [dev[o:o + a.size].view(a.shape) for a, o in zip(parts, offs)]
+
+
 class Renderer:
     """Holds the device-resident scene data and renders frames."""
 
-    UNIFORMS_LEN = 112
+    UNIFORMS_LEN = project.UNIFORMS_LEN
 
     def __init__(self, engine, config: RendererConfig | None = None,
                  device="cuda"):
@@ -347,11 +371,6 @@ class Renderer:
         self.last_stream_truncated = 0
         self._plan_host = None
         self._plan_dev = None
-        # pinned staging buffers of plan uploads with their copies' events
-        self._staging = []
-        # the uniforms' ring of pinned host buffers: [buffer, event] slots
-        self._uni_ring = []
-        self._uni_next = 0
         # frames in flight, oldest first: post_aux's pending records
         self._inflight = []
 
@@ -602,64 +621,21 @@ class Renderer:
     def pack_frame_uniforms(scene: SceneParams, cam: CameraUniforms,
                             lod_enable, culling_dist: float,
                             render_gs: bool = True) -> np.ndarray:
-        v = np.zeros(Renderer.UNIFORMS_LEN, np.float32)
-        v[0:16] = cam.view.reshape(-1)
-        v[16:32] = (OPENGL_TO_WGPU @ cam.projection).reshape(-1)
-        v[32:48] = (cam.projection @ cam.view).reshape(-1)
-        v[48:50] = cam.focal
-        v[50:52] = cam.htan_fov
-        v[52:55] = cam.cam_pos
-        v[55] = scene.splat_scale
-        v[56] = scene.tile_width
-        v[57] = scene.use_clip
-        v[58] = scene.clip_height
-        v[59] = scene.sphere_radius
-        v[60] = scene.point_cloud_radius
-        v[61] = scene.transition_width_ratio
-        v[62] = scene.num_lod
-        v[63:65] = scene.map_half_wh
-        v[65:67] = scene.center_coord
-        v[67:83] = scene.transition_dist_vec
-        v[83:86] = scene.height_map_scale
-        v[86:89] = scene.scene_scale
+        """One frame's uniform block [UNIFORMS_LEN] f32 (host), laid out as
+        ops/project.py UNIFORMS says."""
         le = [1.0 if b else 0.0 for b in lod_enable][:16]
-        v[89 : 89 + len(le)] = le
-        v[105] = culling_dist
-        v[106] = 1.0 if render_gs else 0.0
-        return v
+        return project.pack_uniform_block(dict(
+            view=cam.view, proj_wgpu=OPENGL_TO_WGPU @ cam.projection,
+            view_proj=cam.projection @ cam.view, focal=cam.focal,
+            htan_fov=cam.htan_fov, cam_pos=cam.cam_pos,
+            **{f.name: getattr(scene, f.name) for f in project.UNIFORMS
+               if f.group == "scene"},
+            lod_enable=le + [0.0] * (16 - len(le)),
+            culling_dist=culling_dist, gs_enable=1.0 if render_gs else 0.0))
 
-    @staticmethod
-    def unpack_frame_uniforms(v):
-        """Unpack a uniforms tensor into (scene_dict, cam_dict, lod_enable,
-        culling_dist, gs_enable), 0-d and small tensors on v's device."""
-        i32 = torch.int32
-        cam = dict(
-            view=v[0:16].reshape(4, 4),
-            proj_wgpu=v[16:32].reshape(4, 4),
-            view_proj=v[32:48].reshape(4, 4),
-            focal=v[48:50],
-            htan_fov=v[50:52],
-            cam_pos=v[52:55],
-        )
-        scene = dict(
-            splat_scale=v[55],
-            tile_width=v[56],
-            use_clip=v[57].to(i32),
-            clip_height=v[58],
-            sphere_radius=v[59],
-            point_cloud_radius=v[60],
-            transition_width_ratio=v[61],
-            num_lod=v[62].to(i32),
-            map_half_wh=v[63:65].to(i32),
-            center_coord=v[65:67].to(i32),
-            transition_dist_vec=v[67:83],
-            height_map_scale=v[83:86],
-            scene_scale=v[86:89],
-        )
-        lod_enable = v[89:105].to(i32)
-        culling_dist = v[105]
-        gs_enable = v[106].to(i32)
-        return scene, cam, lod_enable, culling_dist, gs_enable
+    # (scene_dict, cam_dict, lod_enable, culling_dist, gs_enable) of a
+    # uniforms tensor, on its device (ops/project.py unpack_uniform_block)
+    unpack_frame_uniforms = staticmethod(project.unpack_uniform_block)
 
     # ------------------------------------------------------------------ #
     def stage(self, dt: DrawTable, camera: Camera | None = None,
@@ -691,10 +667,8 @@ class Renderer:
         return dict(blocks=blocks, merged=merged, draw=draw)
 
     def upload_plan(self, staged):
-        """The staged plan on the device; uploaded once per staged plan. On
-        the card its arrays go up in one non-blocking copy from a pinned
-        staging buffer, kept until the copy's event has completed, and are
-        carved into views (each 256-B aligned) on the device."""
+        """The staged plan on the device (upload_parts); uploaded once per
+        staged plan."""
         if staged is self._plan_host:
             return self._plan_dev
         d = staged["draw"]
@@ -704,24 +678,7 @@ class Renderer:
         parts.append(np.ascontiguousarray(d["corner_pos"], np.float32)
                      .view(np.int32))
         with _hprof("render.plan", self.device):
-            if self.device.type == "cuda":
-                step = _PLAN_ALIGN // 4
-                offs = np.cumsum([0] + [-(-a.size // step) * step
-                                        for a in parts])
-                host = torch.empty(int(offs[-1]), dtype=torch.int32,
-                                   pin_memory=True)
-                hn = host.numpy()
-                for a, o in zip(parts, offs):
-                    hn[o:o + a.size] = a.reshape(-1)
-                dev = host.to(self.device, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(self.device))
-                self._staging = [(h, e) for h, e in self._staging
-                                 if not e.query()] + [(host, done)]
-                arrs = [dev[o:o + a.size].view(a.shape)
-                        for a, o in zip(parts, offs)]
-            else:
-                arrs = [torch.from_numpy(a) for a in parts]
+            arrs = upload_parts(parts, self.device)
         blocks, merged, single_draw, tile_lod, has_corners, corner = arrs
         self._plan_dev = dict(
             blocks=blocks, merged=merged,
@@ -735,36 +692,13 @@ class Renderer:
     # ------------------------------------------------------------------ #
     def pack_uniforms(self, camera: Camera, scene: SceneParams,
                       rc: RenderConfig, render_gs: bool = True):
-        """One frame's packed uniforms [UNIFORMS_LEN] f32 on the device. On
-        the card they go up with a non-blocking copy from a ring of pinned
-        host buffers; a slot is written again only once the copy that last
-        read it has completed (its event), which render's ring of
-        pipeline_depth + 1 slots makes true before the slot comes round."""
+        """One frame's packed uniforms [UNIFORMS_LEN] f32 on the device
+        (upload_parts)."""
         lod_enable = list(rc.lod_enable or [True] * 16)
         v = self.pack_frame_uniforms(
             scene, CameraUniforms(camera), lod_enable, rc.culling_dist,
             render_gs=render_gs)
-        if self.device.type != "cuda":
-            return torch.from_numpy(v)
-        if not self._uni_ring:
-            self._grow_ring(1)
-        slot = self._uni_ring[self._uni_next % len(self._uni_ring)]
-        self._uni_next += 1
-        if slot[1] is not None and not slot[1].query():
-            with _hprof("sync.uniform_slot"):
-                slot[1].synchronize()
-        slot[0].numpy()[:] = v
-        out = slot[0].to(self.device, non_blocking=True)
-        slot[1] = torch.cuda.Event()
-        slot[1].record(torch.cuda.current_stream(self.device))
-        return out
-
-    def _grow_ring(self, n: int):
-        """At least n slots in the uniforms' ring (the card only)."""
-        while len(self._uni_ring) < n:
-            self._uni_ring.append([torch.empty(
-                self.UNIFORMS_LEN, dtype=torch.float32, pin_memory=True),
-                None])
+        return upload_parts([v], self.device)[0]
 
     def frame_uniforms(self, camera: Camera, scene: SceneParams,
                        rc: RenderConfig, render_gs: bool = True):
@@ -777,20 +711,25 @@ class Renderer:
                 rc: RenderConfig, render_gs: bool = True):
         """Draw cull + stream assembly + projection of one frame from an
         uploaded plan (ops/project.py assemble_and_project outputs)."""
-        return self._project(
-            plan, self.frame_uniforms(camera, scene, rc, render_gs), scene, rc)
+        uniforms = self.pack_uniforms(camera, scene, rc, render_gs)
+        return self._project(plan, uniforms,
+                             self.unpack_frame_uniforms(uniforms), scene, rc)
 
-    def _project(self, plan, unpacked, scene: SceneParams, rc: RenderConfig):
+    def _project(self, plan, uniforms, unpacked, scene: SceneParams,
+                 rc: RenderConfig):
+        """project() from the frame's packed uniforms and their unpacked
+        form: the draw cull reads the unpacked values, the kernel the
+        block."""
         c = self.cfg
-        scene_d, cam_d, lod_en, culling_dist, gs_enable = unpacked
+        _, cam_d, lod_en, culling_dist, _ = unpacked
         keep = project.cull_draws(plan["draw"], cam_d, culling_dist, lod_en)
         return project.assemble_and_project(
             plan["blocks"], plan["merged"], self.panels, keep,
-            self.store_packed, scene_d, cam_d, self.hm4, self.height_map_wh,
+            self.store_packed, uniforms, self.hm4, self.height_map_wh,
             surface_type=int(scene.surface_type), draw_mode=int(rc.draw_mode),
             image_wh=(c.width, c.height),
-            point_cloud=bool(rc.draw_point_cloud), gs_enable=gs_enable,
-            exact=c.exact, hm_src=self.hm_src,
+            point_cloud=bool(rc.draw_point_cloud), exact=c.exact,
+            hm_src=self.hm_src,
         )
 
     def proxy_pass(self, cam_d, scene_d, scene: SceneParams, rc: RenderConfig):
@@ -867,7 +806,7 @@ class Renderer:
         pack_uniforms or a row of parallel/batched.py pack_camera_batch)."""
         with _hprof("render.front.project", self.device):
             unpacked = self.unpack_frame_uniforms(uniforms)
-            p = self._project(plan, unpacked, scene, rc)
+            p = self._project(plan, uniforms, unpacked, scene, rc)
         bg, depth_tiles, aux = self.background(
             unpacked, scene, rc, use_skybox=use_skybox, use_proxy=use_proxy)
         with _hprof("render.front.bin", self.device):
@@ -1194,8 +1133,6 @@ class Renderer:
         rc = render_config or RenderConfig.new(self.engine.n_tiles[0])
         if staged is None:
             staged = self.stage(dt, camera, rc.culling_dist)
-        if self.device.type == "cuda":
-            self._grow_ring(pipeline_depth + 1)
         self.last_overflow_retries = 0
         sat_zin = self._sat_cut_in(camera, rc, render_gs)
         plan = self.upload_plan(staged)

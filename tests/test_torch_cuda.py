@@ -1234,6 +1234,37 @@ def test_pipelined_frame_makes_no_wait_under_sync_debug_error(bench_frame):
     assert bool(torch.isfinite(img).all())
 
 
+def test_pinned_pool_stops_growing_over_pipelined_frames(bench_frame):
+    """500 pipelined 1080p full-config frames at depth 2, each uploading its
+    uniforms and (alternating between two copies of the staged plan) its
+    plan from a freshly allocated pinned buffer (render/pipeline.py
+    upload_parts): PyTorch's caching host allocator hands each buffer out
+    again once its copy has completed, so after 50 frames of warm-up the
+    pinned pool takes no new block and its bytes stay flat."""
+    f = bench_frame
+    r = f["r"]
+    plans = [f["staged"], dict(f["staged"])]
+
+    def frames(first, n):
+        for i in range(first, first + n):
+            r.render(None, f["camera"](0.01 * (i % 7)), f["sp"], f["rc"],
+                     staged=plans[i % 2], as_numpy=False, pipeline_depth=2,
+                     **f["full"])
+
+    def pool():
+        s = torch.cuda.host_memory_stats()
+        key = ("reserved_bytes.current" if "reserved_bytes.current" in s
+               else "allocated_bytes.current")
+        return s[key], s["num_host_alloc"]
+
+    frames(0, 50)
+    warm = pool()
+    frames(50, 450)
+    r.drain()
+    assert warm[0] > 0
+    assert pool() == warm, (warm, pool())
+
+
 def test_server_streams_a_frame_jpg(cuda):
     """One /frame.jpg from the viewer over an Engine on the card, decoded,
     and no render-loop error on /hud."""

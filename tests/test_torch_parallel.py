@@ -131,9 +131,10 @@ def test_plan_row5_kills_the_lanes_below_lo(scene):
     lo[0] = 0
     plan6 = dict(plan, blocks=torch.from_numpy(
         np.concatenate([bh, lo[None].astype(np.int32)])))
-    unpacked = r.frame_uniforms(scene["camera"], scene["sp"], scene["rc"])
-    p5 = r._project(plan, unpacked, scene["sp"], scene["rc"])
-    p6 = r._project(plan6, unpacked, scene["sp"], scene["rc"])
+    uniforms = r.pack_uniforms(scene["camera"], scene["sp"], scene["rc"])
+    unpacked = r.unpack_frame_uniforms(uniforms)
+    p5 = r._project(plan, uniforms, unpacked, scene["sp"], scene["rc"])
+    p6 = r._project(plan6, uniforms, unpacked, scene["sp"], scene["rc"])
     lane = torch.arange(256).repeat(bh.shape[1])
     alive = lane >= torch.from_numpy(lo).repeat_interleave(256)
     assert torch.equal(p6["valid"], p5["valid"] & alive)

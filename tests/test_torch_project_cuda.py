@@ -133,8 +133,9 @@ def _frame(name, device, point_cloud=False):
 
 def scene_inputs(name, device, draw_mode=0, point_cloud=False, variant=None):
     """(args, kwargs) of assemble_and_project for one frame of SCENES[name]
-    on `device`, as Renderer._project passes them; variant "plan6" adds a
-    random first live lane per block, "gs_off" switches the splats off."""
+    on `device`, as Renderer._project passes them (the frame's packed
+    uniform block at args[5]); variant "plan6" adds a random first live lane
+    per block, "gs_off" switches the splats off."""
     r, dt, camera, sp, rc = _frame(name, device, point_cloud)
     plan = r.upload_plan(r.stage(dt, camera, rc.culling_dist))
     blocks = plan["blocks"]
@@ -142,15 +143,23 @@ def scene_inputs(name, device, draw_mode=0, point_cloud=False, variant=None):
         lo = np.random.default_rng(3).integers(0, 256, blocks.shape[1])
         blocks = torch.cat([blocks, torch.as_tensor(
             lo[None].astype(np.int32), device=blocks.device)]).contiguous()
-    scene_d, cam_d, lod_en, cdist, gs_en = r.frame_uniforms(
-        camera, sp, rc, render_gs=variant != "gs_off")
+    uniforms = r.pack_uniforms(camera, sp, rc, render_gs=variant != "gs_off")
+    _, cam_d, lod_en, cdist, _ = r.unpack_frame_uniforms(uniforms)
     keep = project.cull_draws(plan["draw"], cam_d, cdist, lod_en)
-    args = (blocks, plan["merged"], r.panels, keep, r.store_packed, scene_d,
-            cam_d, r.hm4, r.height_map_wh)
+    args = (blocks, plan["merged"], r.panels, keep, r.store_packed, uniforms,
+            r.hm4, r.height_map_wh)
     kwargs = dict(surface_type=int(sp.surface_type), draw_mode=draw_mode,
-                  image_wh=(W, H), point_cloud=point_cloud, gs_enable=gs_en,
+                  image_wh=(W, H), point_cloud=point_cloud,
                   exact=SCENES[name]["exact"], hm_src=r.hm_src)
     return args, kwargs
+
+
+def plain(args, kwargs):
+    """assemble_and_project_plain on scene_inputs' inputs: the uniform
+    block unpacked, as the wrapper's CPU branch unpacks it."""
+    scene_d, cam_d, _, _, gs_en = project.unpack_uniform_block(args[5])
+    return project.assemble_and_project_plain(
+        *args[:5], scene_d, cam_d, *args[6:], gs_enable=gs_en, **kwargs)
 
 
 def assert_projection_close(got, want, k_rel, k_outliers, expect_valid=True):
@@ -192,7 +201,7 @@ def test_cpu_tensors_take_the_plain_version():
     args, kwargs = scene_inputs("heightmap_smallmap_merged", "cpu")
     before = kernels.LAUNCHES["project"]
     got = project.assemble_and_project(*args, **kwargs)
-    want = project.assemble_and_project_plain(*args, **kwargs)
+    want = plain(args, kwargs)
     assert kernels.LAUNCHES["project"] == before
     assert got.keys() == want.keys()
     for k, v in want.items():
@@ -209,7 +218,7 @@ def test_project_kernel_matches_plain(cuda, name, draw_mode, point_cloud,
     got = project.assemble_and_project(*args, **kwargs)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["project"] == before + 1
-    want = project.assemble_and_project_plain(*args, **kwargs)
+    want = plain(args, kwargs)
     c = SCENES[name]
     assert_projection_close(got, want, c["k_rel"], c["k_outliers"],
                             expect_valid=variant != "gs_off")
@@ -224,7 +233,7 @@ def test_project_kernel_on_an_empty_stream(cuda):
     args = (args[0][:, :0].contiguous(),) + args[1:]
     before = kernels.LAUNCHES["project"]
     got = project.assemble_and_project(*args, **kwargs)
-    want = project.assemble_and_project_plain(*args, **kwargs)
+    want = plain(args, kwargs)
     assert kernels.LAUNCHES["project"] == before
     for k in ("valid", "cx", "cy", "z", "ext_x", "ext_y"):
         assert got[k].shape == want[k].shape == (0,), k
@@ -240,6 +249,9 @@ def test_project_kernel_rejects_bad_inputs(cuda):
                                      *args[3:], **kwargs)
     with pytest.raises(ValueError):
         project.assemble_and_project(*args, **dict(kwargs, draw_mode=5))
+    for bad in (args[5][:-1], args[5].double()):
+        with pytest.raises(ValueError):
+            project.assemble_and_project(*args[:5], bad, *args[6:], **kwargs)
 
 
 def test_main_path_launches_project_once_and_no_block_gather(cuda):
@@ -247,9 +259,9 @@ def test_main_path_launches_project_once_and_no_block_gather(cuda):
     `block_gather` launch."""
     r, dt, camera, sp, rc = _frame("heightmap_smallmap_merged", cuda)
     plan = r.upload_plan(r.stage(dt, camera, rc.culling_dist))
-    unpacked = r.frame_uniforms(camera, sp, rc)
+    uniforms = r.pack_uniforms(camera, sp, rc)
     before = collections.Counter(kernels.LAUNCHES)
-    p = r._project(plan, unpacked, sp, rc)
+    p = r._project(plan, uniforms, r.unpack_frame_uniforms(uniforms), sp, rc)
     torch.cuda.synchronize()
     launched = kernels.LAUNCHES - before
     assert dict(launched) == {"project": 1}, launched
