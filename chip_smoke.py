@@ -7,7 +7,8 @@ Phases, each printing its own line; any failure raises (non-zero exit):
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every CUDA kernel of the main paths from csrc/ (eight sources, the
    compositor in eight compile-time variants, the micro-raster in twelve),
-   one nvcc each, all at once, with each kernel's registers and spills;
+   one nvcc each, all at once, with each kernel's registers and spills, and
+   each compositor variant's thread blocks an SM and clusters at once;
 3. ground: the port's grid ground at 1080p against the benchmark's plain
    ground (gswt_bench/reference/background.py) at seven poses of its fly
    path ([ground] lines: the share of the reference's ground pixels the
@@ -43,7 +44,9 @@ Phases, each printing its own line; any failure raises (non-zero exit):
    the compositor also the load it carries (the share of composited
    pair-pixels kept, the share of (pair, warp block) visits its mask
    leaves, run lengths per tile), failing if the mask would leave out a
-   kept pair-pixel;
+   kept pair-pixel; and on the pair tables of the dense and sky still cells
+   (gswt_bench's cells at CELL_SEED, [cells] lines): run lengths, max_run,
+   the whole table's time and its longest run's and longest walk's alone;
 5. main paths, each with the launch counters zeroed just before and read
    just after: 4 gs-only and 8 full-config 1080p frames along the bench fly
    path through Engine in the exact profile (the earlier slices' paths, at
@@ -173,6 +176,10 @@ N_FRAMES = 24      # the main path: fast-profile full-config frames
 N_FRAMES_EXACT = 8  # exact-profile full-config frames (slice 2's path, cut)
 N_FRAMES_GS = 4    # exact-profile gs-only frames (slice 1's path, cut)
 N_FRAMES_SAT = 6   # fixed-camera frames with and without the sat cull
+# the splat-only still cells whose pair tables [cells] captures, at the pose
+# and tile set that this --seed gives their benchmark runs
+CELL_TABLES = ("dense_tiles_1080p.still", "paper_sky_1080p.still")
+CELL_SEED = 4100000017
 
 
 def _time_ms(torch, fn, reps: int) -> float:
@@ -625,6 +632,109 @@ def phase_ground(torch, smi):
     if worst > GROUND_MISS_SHARE:
         raise RuntimeError(f"the port's ground misses {worst:.4%} of the "
                            f"reference ground's pixels")
+
+
+def capture_cell_table(torch, workload, seed):
+    """One frame's pair table of a benchmark cell, at the pose and on the
+    tile set that `--seed` gives the cell's run (gswt_bench/harness.py
+    run_cell's draws), after the harness's warm-up: (binned, depth_tiles,
+    rasterize's keywords as Renderer.back passes them)."""
+    from gswt_bench import harness
+    from gswt_bench.frozen import synth
+    from gswt_bench.reference import camera as rcam
+
+    cell = harness.cell_of(harness.benchmark(), workload)
+    cfg = harness.config(cell["config"])
+    trf = harness.traffic(cell["traffic"])
+    if trf["moving"]:
+        raise ValueError(f"{workload} is not a still cell")
+    t0 = float(np.random.default_rng(seed).uniform(*trf["pose_s"]))
+    raw = synth.tile_set(
+        n_lod=cfg["n_lod"], n_center_options=cfg["n_center_options"],
+        tile_width=cfg["tile_width"], splats_per_tile=cfg["splats_per_tile"],
+        seed=seed, lod_decay=cfg["lod_decay"])
+    eng = harness.build_engine(cfg, raw, torch.device("cuda"))
+    try:
+        harness.warm_up(eng, trf, t0, [
+            (-np.inf, np.asarray(rcam.STARTUP_POSITION, np.float32))])
+        r = eng.renderer
+        binned, _, depth, _ = r.front(
+            r.upload_plan(eng._staged), eng.camera, eng.scene_params,
+            eng.render_config, use_skybox=bool(cfg["skybox"]),
+            use_proxy=bool(cfg["proxy"]))
+        torch.cuda.synchronize()
+        c = r.cfg
+        kw = dict(image_wh=(c.width, c.height), tile_wh=(c.tile_w, c.tile_h),
+                  chunk=c.chunk, use_depth=bool(cfg["proxy"]), exact=c.exact)
+    finally:
+        eng.shutdown()
+    return binned, depth, kw
+
+
+def one_tile(torch, binned, tile):
+    """The binned table with every run but `tile`'s emptied."""
+    keep = torch.arange(binned["range_start"].shape[0],
+                        device=binned["range_start"].device) == tile
+    return dict(binned, **{k: torch.where(keep, binned[k], 0).int()
+                           .contiguous()
+                           for k in ("range_start", "range_end")})
+
+
+def phase_cell_tables(torch, smi, seed=CELL_SEED):
+    """[cells] The compositor on the splat-only still cells' own pair tables
+    (capture_cell_table): held to its plain version (RASTER_TOL), each
+    table's run lengths per tile, max_run, the pairs composited before the
+    early exit, and CUDA-event medians of the whole table and of its
+    longest run alone (and of its longest walk alone where that is another
+    tile). Returns {workload: numbers}."""
+    from gswt_renderer_tpu_torch.ops import raster
+
+    out = {}
+    for workload in CELL_TABLES:
+        binned, depth, kw = capture_cell_table(torch, workload, seed)
+        st = {}
+        want = raster.rasterize_plain(binned, depth, stats=st, **kw)
+        got = raster.rasterize(binned, depth, **kw)
+        err = float((got - want).abs().amax())
+        del got, want
+        if not err <= RASTER_TOL:
+            raise RuntimeError(f"[cells] {workload}: the kernel is {err} "
+                               f"off its plain version")
+        runs = (binned["range_end"] - binned["range_start"]).long()
+        walk = st["tile_pairs"]
+        q = torch.quantile(runs[runs > 0].double(), torch.tensor(
+            [0.5, 0.99], dtype=torch.float64, device=runs.device))
+        top, top_w = int(torch.argmax(runs)), int(torch.argmax(walk))
+        max_run = int(binned["max_run"])
+        if max_run != int(runs.max()):
+            raise RuntimeError(f"[cells] {workload}: max_run {max_run} is "
+                               f"not the longest run {int(runs.max())}")
+        whole = _median_ms(torch, lambda: raster.rasterize(
+            binned, depth, **kw))[0]
+        row = dict(pairs_kept=int(binned["n_pairs_kept"]), max_run=max_run,
+                   run_median=float(q[0]), run_p99=float(q[1]),
+                   walk_max=int(walk.max()), whole_ms=whole)
+        for name, t in (("alone", top), ("walk_alone", top_w)):
+            if name == "alone" or top_w != top:
+                alone = one_tile(torch, binned, t)
+                row[f"{name}_ms"] = _median_ms(torch, lambda: raster.rasterize(
+                    alone, depth, **kw))[0]
+        walk_note = ("" if top_w == top else
+                     f"; the longest walk alone (tile {top_w}, "
+                     f"{int(walk[top_w])} pairs) {row['walk_alone_ms']:.3f} "
+                     f"ms")
+        print(f"[cells] {workload} (seed {seed}): {row['pairs_kept']} pairs "
+              f"kept; run length per tile median {row['run_median']:.0f}, "
+              f"p99 {row['run_p99']:.0f}, max_run {max_run} (tile {top}, "
+              f"{int(walk[top])} composited before the early exit; the "
+              f"longest walk {row['walk_max']}); max |err| {err:.3e}; the "
+              f"whole table {whole:.3f} ms, the longest run alone "
+              f"{row['alone_ms']:.3f} ms ({row['alone_ms'] / whole:.1%})"
+              f"{walk_note} | {smi}")
+        out[workload] = row
+        del binned, depth
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_profile(torch, eng, fp, label, n: int = 4):
@@ -1220,6 +1330,20 @@ def main():
                 entry = line.split("'")[1] if "'" in line else line
             elif "registers" in line or "spill" in line:
                 print(f"[build] {name} {entry}: {line.strip()}")
+
+    # the compositor's variants as the card holds them: registers, local
+    # memory, thread blocks an SM and clusters at once
+    for tile_wh in ((64, 32), (100, 20)):
+        for exact in (True, False):
+            for zcut in (False, True):
+                occ = raster.kernel_occupancy(tile_wh, exact=exact,
+                                              emit_zcut=zcut)
+                print(f"[build] raster {tile_wh[0]}x{tile_wh[1]} "
+                      f"{'exact' if exact else 'fast'}"
+                      f"{' + zcut' if zcut else ''}: {occ['registers']} "
+                      f"registers, {occ['local_bytes']} B local a thread, "
+                      f"{occ['ctas_per_sm']} thread blocks an SM, "
+                      f"{occ['clusters']} clusters of 4 at once")
 
     # 3. the ground against the benchmark's; the reference on a small input
     phase_ground(torch, smi)
@@ -2066,18 +2190,17 @@ def main():
     print(f"[kernel] raster, all four variants on the gs-only (untested and "
           f"random depth), exact and fast full-config tables: max abs diff "
           f"per (exact, zcut) {variant_err}")
-    # the longest run alone: a tile is one CTA walking its run in order, so
-    # the kernel takes at least this tile's time on one SM
+    # the longest run alone: a tile's four CTAs walk its run in order, so
+    # the kernel takes at least this tile's time
     runs_q = binned_q["range_end"] - binned_q["range_start"]
     top = int(torch.argmax(runs_q))
-    alone = dict(binned_q, **{k: torch.where(
-        torch.arange(n_tiles, device="cuda") == top, binned_q[k], 0).int()
-        .contiguous() for k in ("range_start", "range_end")})
     alone_ms = _time_ms(torch, lambda: raster.rasterize(
-        alone, depth_q, **fast_kw), 10)
+        one_tile(torch, binned_q, top), depth_q, **fast_kw), 10)
     print(f"[kernel] raster_fast on the longest run alone ({int(runs_q[top])} "
           f"pairs, tile {top}): {alone_ms:.3f} ms of the frame's "
-          f"{rf['ms']:.3f} ms")
+          f"{rf['ms']:.3f} ms (max_run {int(binned_q['max_run'])})")
+    # the splat-only still cells' own tables
+    phase_cell_tables(torch, smi)
     exact_on_q_ms = _time_ms(torch, lambda: raster.rasterize(
         binned_q, depth_q, **depth_kw), 10)
     print(f"[kernel] raster variants on the fast frame's table: exact "

@@ -38,7 +38,8 @@
 //    tile in one shared-memory histogram: hist[tile][block].
 // 4. scan_rows (one block a tile): each tile's row of hist scanned in place;
 //    the last block to finish scans the tiles' totals into each tile's first
-//    column, range_start / range_end and n_pairs_kept.
+//    column, range_start / range_end, n_pairs_kept and max_run (the longest
+//    tile run).
 // 5. place: the same blocks over their recorded slots. Each warp counts its
 //    segment's survivors per tile; the block lays its kept pairs out in
 //    shared memory tile by tile, each tile's warps in order, and a kept
@@ -111,7 +112,8 @@ struct BinArgs {
   float* table;                // [16, cap] f32
   int* range_start;            // [n_tiles] i32
   int* range_end;              // [n_tiles] i32
-  long long* counts;           // [3] i64: n_pairs, n_pairs_kept, n_live
+  long long* counts;           // [4] i64: n_pairs, n_pairs_kept, n_live,
+                               // max_run
   unsigned char* overflow;     // 0-d bool
   long long* block_demand;     // [ceil(s / 256)] i64, or null
   long long s, cap;
@@ -508,10 +510,11 @@ __global__ void hist_kernel(const BinArgs a, const Scratch sc,
 
 // 4. scan_rows: one block per tile, its row of hist scanned in place; the
 // last block scans the tiles' totals: each tile's first column, its range,
-// n_pairs_kept
+// n_pairs_kept and the longest run (max_run)
 __global__ void __launch_bounds__(kRowScan)
 scan_rows_kernel(const BinArgs a, const Scratch sc, long long n_bseg) {
   __shared__ bool last;
+  __shared__ int longest;
   int4* row = reinterpret_cast<int4*>(sc.hist + blockIdx.x * n_bseg);
   int carry = 0;
   for (long long b = 0; b < n_bseg / 4; b += kRowScan) {
@@ -526,6 +529,7 @@ scan_rows_kernel(const BinArgs a, const Scratch sc, long long n_bseg) {
     carry += total;
   }
   if (threadIdx.x == 0) {
+    longest = 0;
     sc.tile_base[blockIdx.x] = carry;
     __threadfence();
     last = atomicAdd(sc.ticket, 1u) == gridDim.x - 1;
@@ -537,10 +541,15 @@ scan_rows_kernel(const BinArgs a, const Scratch sc, long long n_bseg) {
   const int per = (nt + kRowScan - 1) / kRowScan;
   const int b = threadIdx.x * per;
   const int e = b + per < nt ? b + per : nt;
-  int s = 0;
-  for (int k = b; k < e; ++k) s += __ldcg(sc.tile_base + k);
+  int s = 0, m = 0;
+  for (int k = b; k < e; ++k) {
+    const int v = __ldcg(sc.tile_base + k);
+    s += v;
+    m = max(m, v);
+  }
+  atomicMax(&longest, m);
   int total;
-  int run = block_excl_scan(s, &total);
+  int run = block_excl_scan(s, &total);  // its barriers order `longest`
   for (int k = b; k < e; ++k) {
     const int v = __ldcg(sc.tile_base + k);
     sc.tile_base[k] = run;
@@ -548,7 +557,10 @@ scan_rows_kernel(const BinArgs a, const Scratch sc, long long n_bseg) {
     a.range_end[k] = v ? run + v : 0;
     run += v;
   }
-  if (threadIdx.x == 0) a.counts[1] = total;
+  if (threadIdx.x == 0) {
+    a.counts[1] = total;
+    a.counts[3] = longest;
+  }
 }
 
 // 5. place: the blocks and segments of hist again, each kept pair's lane

@@ -400,7 +400,7 @@ def _bin_pairs_cuda(p, *, image_wh, tile_wh, chunk, exact, cull_exact,
         dtype=torch.uint8, device=dev)
     table = torch.empty((16, capacity), dtype=torch.float32, device=dev)
     ranges = torch.empty((2, n_tiles), dtype=torch.int32, device=dev)
-    counts = torch.empty(3, dtype=torch.int64, device=dev)
+    counts = torch.empty(4, dtype=torch.int64, device=dev)
     overflow = torch.empty((), dtype=torch.bool, device=dev)
     demand = (torch.empty(-(-s_n // 256), dtype=torch.int64, device=dev)
               if emit_block_demand else None)
@@ -421,7 +421,7 @@ def _bin_pairs_cuda(p, *, image_wh, tile_wh, chunk, exact, cull_exact,
     kernels.check(rc, "binning")
     out = dict(table=table, range_start=ranges[0], range_end=ranges[1],
                n_pairs=counts[0], overflow=overflow, n_pairs_kept=counts[1],
-               n_live=counts[2])
+               n_live=counts[2], max_run=counts[3])
     if emit_block_demand:
         out["block_demand"] = demand
     return out
@@ -474,8 +474,8 @@ def bin_pairs(p, *, image_wh, tile_wh, chunk: int, exact: bool = True,
         (k5 = -1e30, ln a = -inf)
       range_start/range_end [n_tiles] i32 — each tile's run of the table
       n_pairs — bbox pair demand, overflow — n_pairs > dom, n_pairs_kept —
-        pairs in tile runs after the culls, n_live — visible splats (0-d
-        tensors)
+        pairs in tile runs after the culls, n_live — visible splats,
+        max_run — the longest tile run (0-d tensors)
       block_demand — with emit_block_demand only (see above)
 
     CPU tensors take bin_pairs_plain; CUDA tensors launch the kernels of
@@ -565,6 +565,7 @@ def bin_pairs_plain(p, *, image_wh, tile_wh, chunk: int, exact: bool = True,
         overflow=overflow,
         n_pairs_kept=(range_end - range_start).sum(),
         n_live=ok.sum(),
+        max_run=(range_end - range_start).max().long(),
     )
     if emit_block_demand:
         pad = -s_n % 256

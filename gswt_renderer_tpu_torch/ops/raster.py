@@ -6,10 +6,12 @@ of the tile-sorted pair table FRONT-to-back carrying per-pixel transmittance
 T = prod(1 - g_j): the final colour sum_i c_i g_i T_i is algebraically
 identical to back-to-front ONE/ONE_MINUS_SRC_ALPHA blending.
 
-On the card the compositor is the CUDA kernel ``csrc/raster.cu`` (one thread
-block per tile, T and the colour sums in registers, each of its 32 warps
-owning one compact block of the tile: ``warp_layout``); on the CPU it is
-``rasterize_plain``, the same function over the (tile, chunk) worklist.
+On the card the compositor is the CUDA kernel ``csrc/raster.cu`` (one
+cluster of four thread blocks per tile, T and the colour sums in registers,
+each of the tile's 32 warps owning one compact block of it:
+``warp_layout``; block r of the cluster holds the warps w with
+(w % 4 + w // 4) % 4 == r); on the CPU it is ``rasterize_plain``, the same
+function over the (tile, chunk) worklist.
 Both stop compositing a tile once max T < MIN_T, tested where each chunk of
 the table begins. Both come in the exact and the fast profile's variant
 (bf16-rounded weights and colours), each with or without the saturation-slot
@@ -42,7 +44,7 @@ _SCUT_BUMP = 0.5
 SAT_BANDS = 4  # horizontal bands per tile in the saturation record
 MAX_CHUNK = 256  # the CUDA kernel stages one chunk in shared memory
 MAX_TILE_PIXELS = 2048  # 1024 threads x 2 pixels
-N_WARPS = 32  # warps per thread block: one block of the tile each
+N_WARPS = 32  # warps per tile (a cluster of 4 x 8): one block of it each
 _BLOCK_W, _BLOCK_H = 16, 4  # warp blocks where 32 of them cover the tile
 _FLAT = MAX_TILE_PIXELS // N_WARPS  # pixels per warp in the flat layout
 # the mask's limit: CUTOFF - _MASK_MARGIN - _MASK_REL * (the magnitude of the
@@ -419,10 +421,7 @@ def rasterize(binned, depth_tiles, *, image_wh, tile_wh, chunk: int,
     out = torch.empty((n_tiles, 4, p_n), dtype=torch.float32, device=dev)
     zcut = (torch.empty((n_tiles, SAT_BANDS), dtype=torch.float32, device=dev)
             if emit_zcut else None)
-    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib = kernels.load("raster", gswt_raster=[
-        vp, ll, vp, vp, vp, ci, ci, vp, vp, ci, ci, ci, ci, vp])
-    rc = lib.gswt_raster(
+    rc = _lib().gswt_raster(
         kernels.ptr(table), table.shape[1], kernels.ptr(rs), kernels.ptr(re_),
         kernels.ptr(depth_tiles), int(bool(use_depth)), int(not exact),
         kernels.ptr(out), kernels.ptr(zcut) if emit_zcut else None,
@@ -431,6 +430,26 @@ def rasterize(binned, depth_tiles, *, image_wh, tile_wh, chunk: int,
     kernels.LAUNCHES["raster"] += 1
     kernels.check(rc, "raster")
     return (out, zcut) if emit_zcut else out
+
+
+def _lib():
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    return kernels.load(
+        "raster", gswt_raster=[vp, ctypes.c_longlong, vp, vp, vp, ci, ci, vp,
+                               vp, ci, ci, ci, ci, vp],
+        gswt_raster_occupancy=[ci, ci, ci, ci, ctypes.POINTER(ci)])
+
+
+def kernel_occupancy(tile_wh, *, exact: bool, emit_zcut: bool) -> dict:
+    """What the card makes of the kernel variant that composites tw x th
+    tiles: registers and local memory bytes a thread, thread blocks
+    resident on an SM, and clusters resident on the card at once."""
+    out = (ctypes.c_int * 4)()
+    kernels.check(_lib().gswt_raster_occupancy(
+        int(not exact), int(bool(emit_zcut)), int(tile_wh[0]),
+        int(tile_wh[1]), out), "raster")
+    return dict(registers=out[0], local_bytes=out[1], ctas_per_sm=out[2],
+                clusters=out[3])
 
 
 def tiles_to_image(tile_acc, *, image_wh, tile_wh):

@@ -100,8 +100,9 @@ PROXY_CHUNK = 128
 # the frame counts a frame reads back (its aux), in the order of the host
 # vector; the proxy grid's triangle counts only while the host-section
 # profiler is on (ops/proxy.py grid_counts)
-AUX_KEYS = ("n_pairs", "n_pairs_kept", "n_live", "overflow", "proxy_pairs",
-            "proxy_overflow", "proxy_tris_live", "proxy_tris_thin")
+AUX_KEYS = ("n_pairs", "n_pairs_kept", "n_live", "max_run", "overflow",
+            "proxy_pairs", "proxy_overflow", "proxy_tris_live",
+            "proxy_tris_thin")
 # every array of an upload (upload_parts) starts at a multiple of this many
 # bytes
 _UPLOAD_ALIGN = 256
@@ -855,9 +856,9 @@ class Renderer:
         """Binning of a projected stream (ops/binning.py bin_pairs) with the
         configured culls, into the capacity of `budget` (the splat pair
         budget when None) for the stream's lanes. Returns (binned, aux): aux
-        holds n_pairs, overflow, n_pairs_kept and n_live (0-d tensors),
-        pair_capacity (the host int the expansion was launched with), and
-        block_demand with emit_block_demand."""
+        holds n_pairs, overflow, n_pairs_kept, n_live and max_run (0-d
+        tensors), pair_capacity (the host int the expansion was launched
+        with), and block_demand with emit_block_demand."""
         c = self.cfg
         image_wh = (c.width, c.height)
         tile_wh = (c.tile_w, c.tile_h)
@@ -874,7 +875,7 @@ class Renderer:
             capacity=capacity,
         )
         aux = {k: binned[k] for k in ("n_pairs", "overflow", "n_pairs_kept",
-                                      "n_live")}
+                                      "n_live", "max_run")}
         aux["pair_capacity"] = capacity
         if emit_block_demand:
             aux["block_demand"] = binned.pop("block_demand")
@@ -1123,8 +1124,8 @@ class Renderer:
         budget for later frames instead of rendering this one again
         (`overflow_frames` counts those). At depth 0 the frame reads its
         counts at its end (last_aux: n_pairs, n_pairs_kept, n_live,
-        overflow, and proxy_pairs and proxy_overflow when the proxy was
-        drawn) and an overflowed frame is rendered again with the grown
+        max_run, overflow, and proxy_pairs and proxy_overflow when the
+        proxy was drawn) and an overflowed frame is rendered again with the grown
         budgets (`last_overflow_retries`), so every frame read back is
         exact. Either way no wait for the device falls between the frame's
         first and last launch."""

@@ -99,7 +99,7 @@ def assert_binned_equal(got, want, chunk):
     for k in ("range_start", "range_end"):
         assert got[k].dtype == torch.int32
         assert torch.equal(got[k], want[k]), k
-    for k in ("n_pairs", "overflow", "n_pairs_kept", "n_live"):
+    for k in ("n_pairs", "overflow", "n_pairs_kept", "n_live", "max_run"):
         assert got[k].shape == () and got[k].dtype == want[k].dtype, k
         assert got[k].item() == want[k].item(), (k, got[k], want[k])
     if "block_demand" in want:

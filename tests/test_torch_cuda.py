@@ -31,7 +31,7 @@ import torch
 
 from gswt_renderer_tpu_torch.ops import binning, kernels, raster, texsample, trirast
 from gswt_renderer_tpu_torch.ops.blockgather import block_gather, block_gather_plain
-from torch_tables import fitted
+from torch_tables import fitted, opaque_splats
 
 TOL = 1e-4
 
@@ -167,30 +167,6 @@ def test_raster_on_binned_random_splats(cuda, seed):
         assert float(got[:, 3].max()) > 0.5
 
 
-def _opaque_splats(n, seed, device):
-    """A mix of big stackers and small splats with alpha 0.85-0.99 on a
-    256x128 image, so tiles saturate early (the scene of the CPU tests of
-    the saturation-slot record)."""
-    rng = np.random.default_rng(seed)
-    big = rng.random(n) < 0.5
-    qa = np.where(big, rng.uniform(0.001, 0.01, n), rng.uniform(0.05, 0.4, n))
-    qc = np.where(big, rng.uniform(0.001, 0.01, n), rng.uniform(0.05, 0.4, n))
-    p = dict(
-        cx=rng.uniform(0, 256, n), cy=rng.uniform(0, 128, n),
-        ext_x=np.where(big, rng.uniform(40, 90, n), rng.uniform(3, 12, n)),
-        ext_y=np.where(big, rng.uniform(25, 60, n), rng.uniform(3, 12, n)),
-        z=np.sort(rng.uniform(0.1, 0.9, n)))
-    p = {k: torch.from_numpy(v.astype(np.float32)).to(device)
-         for k, v in p.items()}
-    p["valid"] = torch.ones(n, dtype=torch.bool, device=device)
-    p["q"] = tuple(torch.from_numpy(x.astype(np.float32)).to(device)
-                   for x in (qa, 0.3 * np.sqrt(qa * qc), qc))
-    col = [rng.random(n) for _ in range(3)] + [rng.uniform(0.85, 0.99, n)]
-    p["color"] = tuple(torch.from_numpy(x.astype(np.float32)).to(device)
-                       for x in col)
-    return p
-
-
 @pytest.mark.parametrize("exact", [True, False])
 @pytest.mark.parametrize("seed", [2, 3])
 def test_raster_zcut_variant_equals_plain(cuda, seed, exact):
@@ -198,7 +174,7 @@ def test_raster_zcut_variant_equals_plain(cuda, seed, exact):
     entry, the colour stays within TOL, and emitting the record does not
     change the colour the kernel writes."""
     image_wh, tile_wh, chunk = (256, 128), (64, 32), 128
-    p = _opaque_splats(1024, seed, cuda)
+    p = opaque_splats(1024, seed, cuda)
     b = fitted(lambda cap: binning.bin_pairs(
         p, image_wh=image_wh, tile_wh=tile_wh, chunk=chunk, exact=exact,
         cull_exact=False, capacity=cap), lambda b: b["n_pairs"], chunk)
@@ -244,7 +220,7 @@ def test_raster_fast_variant_matches_plain(cuda, seed):
     version, within TOL; and the rounding is really there (the variant
     differs from the exact one by up to a bf16 step)."""
     image_wh, tile_wh, chunk = (256, 128), (64, 32), 256
-    p = _opaque_splats(3000, seed, cuda)
+    p = opaque_splats(3000, seed, cuda)
     p["color"] = p["color"][:3] + (p["color"][3] * 0.4,)
     b = fitted(lambda cap: binning.bin_pairs(
         p, image_wh=image_wh, tile_wh=tile_wh, chunk=chunk, exact=False,
@@ -1004,7 +980,7 @@ def test_raster_on_binned_splats_other_tile_sizes(cuda, tile_wh, exact,
     64x32: 100x20 (the flat warp layout) and 32x16 (eight 16x4 blocks,
     24 warps without pixels), chunk 256, under a random depth."""
     image_wh = (3 * tile_wh[0], 4 * tile_wh[1])
-    p = _opaque_splats(2500, 4, cuda)
+    p = opaque_splats(2500, 4, cuda)
     p["cx"] = p["cx"] * (image_wh[0] / 256)
     p["cy"] = p["cy"] * (image_wh[1] / 128)
     p["color"] = p["color"][:3] + (p["color"][3] * 0.5,)

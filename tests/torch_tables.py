@@ -325,3 +325,209 @@ def adversarial_micro_binned(seed, name, tile_wh, grid=(2, 2)):
                   range_start=torch.tensor(rs, dtype=torch.int32),
                   range_end=torch.tensor(re_, dtype=torch.int32))
     return binned, image_wh, kw
+
+
+def adversarial_stream(seed, image_wh=(256, 128), stack=300):
+    """A projected stream (bin_pairs' `p`) of adversarial_pairs' conics
+    spread over and around an image, every fifth lane invalid, and `stack`
+    small splats piled on one point, so that one tile's run is far the
+    longest. Colours, alpha and z uniform."""
+    cx, cy, qa, qb, qc = adversarial_pairs(seed)
+    rng = np.random.default_rng(seed)
+    w, h = image_wh
+    n = cx.shape[0]
+    cx = cx / 64.0 * w
+    cy = cy / 64.0 * h
+    det = qa * qc - qb * qb
+    definite = (qa > 0) & (det > 0)
+    ext = np.where(definite, np.sqrt(np.where(
+        definite, 8.0 * np.maximum(qa, qc) / np.maximum(det, 1e-12), 1.0)),
+        30.0)
+    ext = np.minimum(ext, 400.0)
+    pile = rng.uniform(0.05, 0.4, (3, stack))
+    cx = np.concatenate([cx, np.full(stack, 0.3 * w)])
+    cy = np.concatenate([cy, np.full(stack, 0.6 * h)])
+    qa, qc = np.concatenate([qa, pile[0]]), np.concatenate([qc, pile[1]])
+    qb = np.concatenate([qb, np.zeros(stack)])
+    ext = np.concatenate([ext, np.full(stack, 6.0)])
+    m = n + stack
+    p = dict(cx=cx, cy=cy, ext_x=ext, ext_y=ext, z=rng.uniform(0, 1, m))
+    p = {k: torch.from_numpy(v.astype(np.float32)) for k, v in p.items()}
+    p["valid"] = torch.from_numpy(np.arange(m) % 5 != 4)
+    p["q"] = tuple(torch.from_numpy(x.astype(np.float32))
+                   for x in (qa, qb, qc))
+    p["color"] = tuple(torch.from_numpy(x.astype(np.float32))
+                       for x in rng.uniform(0.0, 1.0, (4, m)))
+    return p
+
+
+def opaque_splats(n, seed, device):
+    """A mix of big stackers and small splats with alpha 0.85-0.99 on a
+    256x128 image, so tiles saturate early (the scene of the CPU tests of
+    the saturation-slot record)."""
+    rng = np.random.default_rng(seed)
+    big = rng.random(n) < 0.5
+    qa = np.where(big, rng.uniform(0.001, 0.01, n), rng.uniform(0.05, 0.4, n))
+    qc = np.where(big, rng.uniform(0.001, 0.01, n), rng.uniform(0.05, 0.4, n))
+    p = dict(
+        cx=rng.uniform(0, 256, n), cy=rng.uniform(0, 128, n),
+        ext_x=np.where(big, rng.uniform(40, 90, n), rng.uniform(3, 12, n)),
+        ext_y=np.where(big, rng.uniform(25, 60, n), rng.uniform(3, 12, n)),
+        z=np.sort(rng.uniform(0.1, 0.9, n)))
+    p = {k: torch.from_numpy(v.astype(np.float32)).to(device)
+         for k, v in p.items()}
+    p["valid"] = torch.ones(n, dtype=torch.bool, device=device)
+    p["q"] = tuple(torch.from_numpy(x.astype(np.float32)).to(device)
+                   for x in (qa, 0.3 * np.sqrt(qa * qc), qc))
+    col = [rng.random(n) for _ in range(3)] + [rng.uniform(0.85, 0.99, n)]
+    p["color"] = tuple(torch.from_numpy(x.astype(np.float32)).to(device)
+                       for x in col)
+    return p
+
+
+def warp_rank(warp):
+    """The thread block of a tile's cluster (csrc/raster.cu) that holds the
+    tile's warp `warp` (an int or a tensor): the ranks' checkerboard."""
+    return (warp % 4 + warp // 4) % 4
+
+
+def rank_splats(n_pass, seed, tile_wh, rank, alpha=(0.6, 0.9)):
+    """Pair-table columns [16, n_pass * 512] of tight splats (e = -2 r^2
+    around a pixel centre), n_pass over each pixel of the cluster's block
+    `rank` in random order: they saturate its pixels and reach no further
+    than a pixel into the next warp blocks, so the other ranks' pixels away
+    from its blocks keep T = 1."""
+    tw, _ = tile_wh
+    rng = np.random.default_rng(seed)
+    _, warp = tr.warp_layout(tile_wh)
+    pix = torch.nonzero(warp_rank(warp) == rank).flatten().numpy()
+    idx = np.concatenate([rng.permutation(pix) for _ in range(n_pass)])
+    a = np.full(idx.shape[0], 2.0)
+    return _quadratic_columns(rng, a, a, idx % tw + 0.5, idx // tw + 0.5,
+                              alpha)
+
+
+def one_rank_splats(n, seed, tile_wh, rank):
+    """Pair-table columns [16, n] of tight splats on the pixels of the
+    cluster's block `rank` whose warp-block mask (ops/raster.py
+    pair_block_mask) reaches that block's warps only."""
+    rects, _ = tr.warp_layout(tile_wh)
+    mine = warp_rank(torch.arange(32)) == rank
+    for n_pass in (1, 2, 4, 8, 16, 32):
+        cols = rank_splats(n_pass, seed, tile_wh, rank)
+        reach = tr.pair_block_mask(tuple(cols[:6]), cols[6], rects)
+        ok = reach.any(1) & ~(reach & ~mine).any(1)
+        if int(ok.sum()) >= n:
+            return cols[:, ok][:, :n]
+    raise ValueError("too few pixels whose splat stays in the rank's blocks")
+
+
+def cover_splats(n, seed, tile_wh, alpha=(0.2, 0.4)):
+    """Pair-table columns [16, n] of flat splats that reach every pixel of
+    a tile (e > -1 over it), alpha in `alpha`."""
+    tw, th = tile_wh
+    rng = np.random.default_rng(seed)
+    a = b = np.full(n, 1e-4)
+    return _quadratic_columns(rng, a, b, rng.uniform(0, tw, n),
+                              rng.uniform(0, th, n), alpha)
+
+
+def _quadratic_columns(rng, a, b, uc, vc, alpha=(0.3, 0.6)):
+    n = a.shape[0]
+    tab = np.zeros((16, n), np.float64)
+    tab[0], tab[2] = -b, -a
+    tab[3], tab[4] = 2 * b * uc, 2 * a * vc
+    tab[5] = -(a * vc * vc + b * uc * uc)
+    tab[6] = rng.uniform(0.0, 0.5, n)
+    tab[8:11] = rng.uniform(0.2, 1.0, (3, n))
+    tab[11] = np.log(rng.uniform(*alpha, n))
+    return torch.from_numpy(tab.astype(np.float32))
+
+
+def runs_binned(runs, chunk, offset=3):
+    """A binned table (bin_pairs' layout) of tiles whose runs are the given
+    [16, n] column blocks, laid out one after another from column `offset`
+    (off a chunk boundary), dead columns around them, row 12 the slot."""
+    cols, rs, re_ = [torch.zeros((16, offset))], [], []
+    n = offset
+    for r in runs:
+        cols.append(r)
+        rs.append(n)
+        n += r.shape[1]
+        re_.append(n)
+    table = torch.cat(cols, 1)
+    dead = torch.zeros(n, dtype=torch.bool)
+    dead[:offset] = True
+    pad = -(-n // chunk) * chunk - n
+    table = torch.cat([table, torch.zeros((16, pad))], 1)
+    dead = torch.cat([dead, torch.ones(pad, dtype=torch.bool)])
+    table[5] = torch.where(dead, -1e30, table[5])
+    table[11] = torch.where(dead, -torch.inf, table[11])
+    table[12] = torch.arange(table.shape[1], dtype=torch.float32)
+    return dict(table=table.contiguous(),
+                range_start=torch.tensor(rs, dtype=torch.int32),
+                range_end=torch.tensor(re_, dtype=torch.int32))
+
+
+def fma32(a, b, c):
+    """a * b + c for float32 tensors, rounded once to float32 (fmaf): the
+    product is exact in float64, the sum's float64 rounding error is
+    recovered (TwoSum), and a sum that lands exactly on a midpoint of two
+    float32 neighbours goes to the side of that error."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - cd
+    err = (cd - (s - bb)) + (p - bb)
+    r = s.float()
+    rd = r.double()
+    nb = torch.nextafter(r, torch.where(s > rd, torch.inf, -torch.inf)
+                         .float())
+    tie = (s == (rd + nb.double()) * 0.5) & (err != 0) & (s != rd)
+    return torch.where(tie, torch.where((err > 0) == (nb > r), nb, r), r)
+
+
+def composite_walk(binned, depth_tiles, *, tile_wh, chunk: int,
+                   use_depth: bool = True, exact: bool = True):
+    """The compositor's per-pixel recurrence walked pair by pair (every
+    tile's run in lockstep) with the kernel's operations (csrc/raster.cu):
+    each multiply and add of the exponent and of w = g T, T *= 1 - g and
+    alpha's sum a float32 operation of its own, the colour sums fused
+    multiply-adds (fma32), the fast variant's weight and colours rounded to
+    bf16, the early exit where a global multiple of `chunk` begins. Where
+    the exp is the card's, the kernel's output to the bit. [n_tiles, 4, P].
+    Colours must be finite (the kernel leaves a pair no pixel of a warp
+    keeps unread)."""
+    table = binned["table"]
+    dev = table.device
+    rs = binned["range_start"].long()
+    runs = binned["range_end"].long() - rs
+    n_tiles, p_n = rs.shape[0], tile_wh[0] * tile_wh[1]
+    mono = tr._pixel_monomials(*tile_wh, dev)
+    acc = torch.zeros((n_tiles, 4, p_n), dtype=torch.float32, device=dev)
+    trans = torch.ones((n_tiles, p_n), dtype=torch.float32, device=dev)
+    active = runs > 0
+    for q in range(int(runs.max()) if n_tiles else 0):
+        col = rs + q
+        live = active & (q < runs)
+        if q > 0:
+            stop = live & (col % chunk == 0) & (trans.amax(1) < tr.MIN_T)
+            active &= ~stop
+            live &= ~stop
+        if not bool(active.any()):
+            break
+        c = table[:, torch.where(live, col, 0)]  # [16, n_tiles]
+        e = tr._exponent(c[:6], mono)
+        keep = (e >= tr.CUTOFF) & live[:, None]
+        if use_depth:
+            keep &= c[6][:, None] < depth_tiles
+        g = torch.where(keep, torch.exp(e + c[11][:, None]), 0.0)
+        w = g * trans
+        rgb = torch.where(live, c[8:11], 0.0).T[:, :, None]  # [T, 3, 1]
+        if not exact:
+            w, rgb = tbin.round_bf16(w), tbin.round_bf16(rgb)
+        acc[:, :3] = torch.where(w[:, None] == 0.0, acc[:, :3],
+                                 fma32(rgb, w[:, None], acc[:, :3]))
+        acc[:, 3] = acc[:, 3] + w
+        trans = trans * (1.0 - g)
+    return acc
